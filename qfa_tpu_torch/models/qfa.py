@@ -1,0 +1,177 @@
+"""QFA likelihood and posterior inference — the plain batched torch path.
+
+Forward half of ``qfa_tpu.models.qfa``:
+
+1. elementwise assembly of the absorption amplitude ``A`` and the noise
+   diagonal ``D = A^2 Psi + omega * zdep + error^2``;
+2. one (B, 5, Npix) @ (Npix, Nh^2 + Nh + 1) product for every capacitance
+   matrix and data projection at once (``linalg.lowrank``);
+3. batched Nh x Nh Cholesky factorizations and triangular solves.
+
+This is the reference the CUDA prediction kernel (``ops.infer_kernel``)
+is held against, and the path the CLI and server take off the GPU.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..data.batch import SpectraBatch
+from ..linalg import lowrank
+from ..physics.tau import omega_func, tau as tau_line
+from .params import QFAParams
+
+Tensor = torch.Tensor
+
+__all__ = [
+    "ModelOptions",
+    "PredictResult",
+    "absorption",
+    "noise_diagonal",
+    "batch_factors",
+    "batch_nll",
+    "make_delta",
+    "predict",
+]
+
+
+class ModelOptions(NamedTuple):
+    """Static model configuration.
+
+    ``tau_which`` is a law name or a callable ``tau(z)``; normalize user
+    input with :func:`qfa_tpu_torch.physics.tau.resolve_tau`. The plain
+    path evaluates a callable exactly; the CUDA kernel takes names only.
+    """
+
+    tau_which: str | Callable = "becker"
+
+
+class PredictResult(NamedTuple):
+    """Outputs of continuum prediction for a batch of spectra."""
+
+    ll: Tensor  #: (B,) negative log-likelihood (OOD score).
+    hmean: Tensor  #: (B, Nh) posterior mean of the latent factors.
+    hcov: Tensor  #: (B, Nh, Nh) posterior covariance.
+    continuum: Tensor  #: (B, Npix) predicted unabsorbed continuum F hmean + mu.
+    continuum_std: Tensor  #: (B, Npix) predictive std sqrt(diag(F hcov F^T)).
+
+
+def absorption(
+    zabs: Tensor, nr: int, tau_which: str | Callable = "becker"
+) -> Tensor:
+    """Per-pixel absorption amplitude ``A = [exp(-tau_lya(zabs)), 1...]``,
+    shape (..., Nb + nr): blue pixels are attenuated by the Ly-alpha mean
+    optical depth at their absorber redshift, red pixels pass through."""
+    if callable(tau_which):
+        a_blue = torch.exp(-torch.as_tensor(tau_which(zabs)))
+    else:
+        a_blue = torch.exp(-tau_line(zabs, which=tau_which, series=1))
+    ones = torch.ones(zabs.shape[:-1] + (nr,), dtype=a_blue.dtype,
+                      device=a_blue.device)
+    return torch.cat([a_blue, ones], dim=-1)
+
+
+def noise_diagonal(
+    params: QFAParams, batch: SpectraBatch, amp: Tensor
+) -> tuple[Tensor, Tensor, Tensor]:
+    """Masked noise diagonal ``D = A^2 Psi + omega * zdep + error^2``.
+
+    Returns ``(dinv, log_d, zdep)`` where masked pixels have ``dinv = 0``
+    and ``log_d = 0`` (the masked-precision encoding of row deletion).
+    """
+    nr = batch.npix - batch.nb
+    zdep = omega_func(batch.zabs, params.tau0, params.beta, params.c0)
+    omega_full = torch.cat(
+        [params.omega * zdep,
+         torch.zeros(zdep.shape[:-1] + (nr,), dtype=zdep.dtype,
+                     device=zdep.device)],
+        dim=-1,
+    )
+    mask = batch.mask.to(amp.dtype)
+    d = amp * amp * params.Psi + omega_full + batch.error * batch.error
+    safe_d = torch.where(mask > 0, d, 1.0)
+    dinv = mask / safe_d
+    log_d = mask * torch.log(safe_d)
+    return dinv, log_d, zdep
+
+
+def batch_factors(
+    params: QFAParams,
+    batch: SpectraBatch,
+    options: ModelOptions = ModelOptions(),
+    *,
+    gram: Tensor | None = None,
+) -> tuple[lowrank.LowRankFactors, Tensor]:
+    """Factorize the masked likelihood for every spectrum in the batch.
+
+    Returns the low-rank factors and the absorption amplitude ``A``.
+    """
+    nr = batch.npix - batch.nb
+    amp = absorption(batch.zabs, nr, options.tau_which)
+    dinv, log_d, _ = noise_diagonal(params, batch, amp)
+    mask = batch.mask.to(amp.dtype)
+    factors = lowrank.factorize(
+        params.F, batch.delta * mask, amp, dinv, log_d, mask, gram=gram
+    )
+    return factors, amp
+
+
+def batch_nll(
+    params: QFAParams,
+    batch: SpectraBatch,
+    options: ModelOptions = ModelOptions(),
+) -> Tensor:
+    """Per-spectrum negative log-likelihood, shape (B,); all-masked rows
+    evaluate to exactly 0."""
+    factors, _ = batch_factors(params, batch, options)
+    return lowrank.nll(factors)
+
+
+def make_delta(flux: Tensor, mu: Tensor, amp: Tensor, mask: Tensor) -> Tensor:
+    """Residual field ``delta = flux - mu * A`` with masked pixels zeroed
+    (the prediction path's single-line Ly-alpha absorption)."""
+    m = mask.to(amp.dtype)
+    return (flux - mu * amp) * m
+
+
+@torch.no_grad()
+def predict(
+    params: QFAParams,
+    mu: Tensor,
+    flux: Tensor,
+    error: Tensor,
+    zabs: Tensor,
+    mask: Tensor,
+    options: ModelOptions = ModelOptions(),
+) -> PredictResult:
+    """Batched continuum prediction and OOD scoring: likelihood (OOD
+    score), posterior latents, the unabsorbed continuum ``F hmean + mu`` on
+    the full grid, and its uncertainty. Array arguments may carry
+    arbitrary leading batch dimensions."""
+    nb = zabs.shape[-1]
+    nr = flux.shape[-1] - nb
+    amp = absorption(zabs, nr, options.tau_which)
+    delta = make_delta(flux, mu, amp, mask)
+    batch = SpectraBatch(
+        delta=delta,
+        error=error,
+        zabs=zabs,
+        mask=mask,
+        weight=torch.ones(flux.shape[:-1], dtype=flux.dtype,
+                          device=flux.device),
+    )
+    factors, _ = batch_factors(params, batch, options)
+    ll = lowrank.nll(factors)
+    hmean, hcov = lowrank.solve_posterior(factors)
+    continuum = torch.matmul(hmean, params.F.T) + mu
+    fh = torch.matmul(hcov, params.F.T)  # (B, Nh, Npix)
+    var = torch.einsum("...hp,ph->...p", fh, params.F)
+    return PredictResult(
+        ll=ll,
+        hmean=hmean,
+        hcov=hcov,
+        continuum=continuum,
+        continuum_std=torch.sqrt(torch.clamp(var, min=0.0)),
+    )

@@ -1,0 +1,14 @@
+"""Kernels written by hand for Hopper, each beside its plain torch version."""
+
+from .common import TAU_LAW_ABC, loglam_row, tau_law_abc, zq_column
+from .infer_kernel import FusedPredictOutputs, fused_predict, fused_predict_plain
+
+__all__ = [
+    "TAU_LAW_ABC",
+    "loglam_row",
+    "tau_law_abc",
+    "zq_column",
+    "FusedPredictOutputs",
+    "fused_predict",
+    "fused_predict_plain",
+]

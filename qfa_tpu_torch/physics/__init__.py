@@ -1,0 +1,37 @@
+"""Domain physics: optical-depth laws and Lyman-series data."""
+
+from .lyman import COEFF, LYA_WAVELENGTH, N_LINES, OSCILLATOR_STRENGTH, WAVELENGTH
+from .tau import (
+    TAU_LAWS,
+    get_tau_law,
+    n_contributing_lines,
+    omega_func,
+    resolve_tau,
+    tau,
+    tau_becker,
+    tau_fg,
+    tau_hi,
+    tau_kamble,
+    tau_mock,
+    tau_total,
+)
+
+__all__ = [
+    "COEFF",
+    "LYA_WAVELENGTH",
+    "N_LINES",
+    "OSCILLATOR_STRENGTH",
+    "WAVELENGTH",
+    "TAU_LAWS",
+    "get_tau_law",
+    "n_contributing_lines",
+    "omega_func",
+    "resolve_tau",
+    "tau",
+    "tau_becker",
+    "tau_fg",
+    "tau_hi",
+    "tau_kamble",
+    "tau_mock",
+    "tau_total",
+]

@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Runs the port's prediction and serving path once on the card, at the full
-width of the SDSS model the repository ships (Npix 1913, Nb 720, Nh 8),
-with parameters and spectra made from a seed:
+Runs the port's prediction and serving path and its training path once on
+the card, at the full width of the SDSS model the repository ships (Npix
+1913, Nb 720, Nh 8), with parameters and spectra made from a seed:
 
 1. device: requires CUDA; prints the card's name and power limit
    (``nvidia-smi``); turns TF32 off for matmuls and cuDNN, so the plain
@@ -18,7 +18,19 @@ with parameters and spectra made from a seed:
    2048 spectra written to disk, checked against the plain path on the
    CPU;
 5. serving: ``QFAPredictor(device="cuda")`` behind its HTTP server;
-6. times of the kernel and the plain version over 65536 spectra.
+6. times of the kernel and the plain version over 65536 spectra;
+7. the epoch kernel against its plain version on the same CUDA tensors:
+   SDSS width (4096 spectra, batch 512, 2 epochs) and DESI width (512
+   spectra, 1 epoch), derived and plane layouts, and the training CLI's
+   shape (2048 spectra padded to 2500 rows, batch 500, tile 4, 4
+   epochs, derived layout), bf16 operands off and on; 3 epochs in one
+   call against 3 chained calls, and inert padding rows, both bitwise;
+8. training main path: ``cli.main(["--type", "train", ..., "--device",
+   "cuda"])`` on 2048 spectra written to disk, the same run on the plain
+   version (``TRAIN.ENGINE xla``) for comparison, then ``--type predict``
+   from the trained model through the prediction kernel;
+9. times of one training epoch of 65536 spectra, kernel and plain, and
+   the two epochs' outputs held against each other as in phase 7.
 
 Prints a JSON line of kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -64,6 +76,52 @@ REGIMES = {
     "low-noise": dict(psi=(1e-3, 5e-3), omega=(1e-3, 5e-2), err=(0.02, 0.06)),
 }
 LOW_NOISE_LL_RTOL = 2e-4
+#: epoch kernel against its plain version (compare_epoch): the first
+#: batch's loss (before any update) to rtol 1e-6 in every mode (it also
+#: tells bf16 operands from float32 ones, ~2e-5 apart), n_real exact,
+#: and by mode (EPOCH_LIMITS) the per-batch loss sums (relative) and,
+#: for each kind of tensor, the limit of its norm-wise relative error
+#: ||kernel - plain|| / ||plain||; "elementwise" holds it to TRAIN_TOL
+#: instead, None reports it without holding it.
+#: Float32 operands: params elementwise rtol 2e-4 atol 2e-5. The JAX
+#: kernel's atol is 2e-6 (tests/test_epoch_kernel.py:85-98, held on the
+#: CPU); on the card at full width it is 2e-5 because Adam's step
+#: lr m/sqrt(v) divides by the element's own gradient size: for the few
+#: of 74k F elements whose batch gradient nearly cancels, the float32
+#: summation order moves the step by ~1 % of lr (up to 1.2e-5 at DESI
+#: width). Those elements then feed the next batch, so a few moment
+#: elements also leave the JAX elementwise bounds: m and v are held
+#: norm-wise.
+#: bf16 operands: an operand within one float32 rounding of a bf16
+#: rounding boundary rounds differently in two versions that sum in
+#: different orders, moving a product by 2^-8 of itself, and the
+#: updates that follow carry the difference on. The plain version on
+#: the CPU differs from itself on the card, same code and inputs, by as
+#: much as the kernel does (PERF.md section 6), while after one batch
+#: the kernel's moments agree with the card's plain version to 4e-5.
+#: Each limit lies between those readings and the smallest reading of
+#: the plain version with one row of each batch left out (loss sums
+#: 2.0e-3, params 7.7e-4, moments 2.1e-2). Over the 132 updates of
+#: phase 9 the scalar rows drift as far as that control moves them, so
+#: there they are reported only.
+TRAIN_TOL = dict(rtol=2e-4, atol=2e-5)  # float32 params, elementwise
+JAX_TOL = {"params": dict(rtol=2e-4, atol=2e-6),
+           "m": dict(rtol=2e-3, atol=2e-6), "v": dict(rtol=2e-3, atol=1e-9)}
+FIRST_LOSS_RTOL = 1e-6
+EPOCH_LIMITS = {
+    "f32": {"loss": 1e-5, "params": "elementwise",
+            "scalar params": "elementwise", "moments": 1e-4,
+            "scalar moments": 1e-3},
+    "bf16": {"loss": 2e-5, "params": 1e-4, "scalar params": 2e-4,
+             "moments": 5e-3, "scalar moments": 1e-1},
+    "bf16, 132 updates": {"loss": 2e-4, "params": 3e-4,
+                          "scalar params": None, "moments": 1.8e-2,
+                          "scalar moments": None},
+}
+#: training CLI: per-epoch losses of the kernel engine against the plain
+#: engine, both with bf16 operands (the CLI default), over 4 epochs
+CLI_LOSS_RTOL = 1e-5
+PARAM_NAMES = ("F", "Psi", "omega", "tau0", "c0", "beta")
 NPZ_KEYS = {"ll": "ll", "hmean": "hmean", "hcov": "hcov",
             "continuum": "cont", "continuum_std": "uncertainty"}
 
@@ -374,12 +432,327 @@ def phase_times(device, n=65536, reps=5):
     return out, n
 
 
+def train_problem(grid, params, mu, n, seed):
+    """Residual planes of n drawn spectra on the params' device, with the
+    zabs plane, the mask and the zq column."""
+    from qfa_tpu_torch.models.qfa import absorption
+    from qfa_tpu_torch.ops.common import zq_column
+
+    flux, error, mask, zq = draw_spectra(params, mu, grid, n, seed)
+    zabs = torch.tensor(grid.zabs(zq.cpu().numpy()), dtype=torch.float32,
+                        device=flux.device)
+    delta = (flux - mu * absorption(zabs, grid.nr)) * mask
+    return dict(delta=delta, error=error * mask, mask=mask, zabs=zabs,
+                zq=zq_column(zq))
+
+
+def pad_rows(data, pad):
+    """data with ``pad`` zero (inert) rows appended to every plane."""
+    return {k: torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
+            for k, v in data.items()}
+
+
+def layout(grid, data, name):
+    """(zabs, mask, kwargs) of the derived or the plane layout."""
+    from qfa_tpu_torch.ops.common import loglam_row
+
+    if name == "derived":
+        return data["zq"], None, dict(
+            derive_zabs=True,
+            loglam=loglam_row(grid.wav, device=data["delta"].device))
+    return data["zabs"], data["mask"], {}
+
+
+def norm_rel(a, b):
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def compare_epoch(name, got, want, mode):
+    """Kernel against plain outputs of fused_train_epoch, held to
+    EPOCH_LIMITS[mode]; returns the max abs error over the parameters
+    and a summary."""
+    lim = EPOCH_LIMITS[mode]
+    lk, lp = got.loss_sums.flatten(), want.loss_sums.flatten()
+    check(bool(torch.isfinite(lk).all()), f"{name}: loss sums not finite")
+    rel = float(((lk - lp).abs() / lp.abs()).max())
+    check(rel <= lim["loss"], f"{name}: per-batch loss sums differ by "
+          f"{rel:.3g}")
+    first = float((lk[0] - lp[0]).abs() / lp[0].abs())
+    check(first <= FIRST_LOSS_RTOL,
+          f"{name}: first batch loss differs by {first:.3g}")
+    check(torch.equal(got.n_real, want.n_real), f"{name}: n_real differs")
+    worst, worst_norm, outside, total = 0.0, {}, 0, 0
+    for part in ("params", "m", "v"):
+        for k in PARAM_NAMES:
+            a = getattr(getattr(got, part), k).detach()
+            b = getattr(getattr(want, part), k).detach()
+            check(bool(torch.isfinite(a).all()),
+                  f"{name}: {part}.{k} not finite")
+            t = JAX_TOL[part]
+            outside += int(((a - b).abs() > t["atol"] + t["rtol"] * b.abs())
+                           .sum())
+            total += a.numel()
+            kind = "params" if part == "params" else "moments"
+            if a.ndim == 0:
+                kind = "scalar " + kind
+            if lim[kind] == "elementwise":
+                excess = float(((a - b).abs() - TRAIN_TOL["atol"]
+                                - TRAIN_TOL["rtol"] * b.abs()).max())
+                check(excess <= 0, f"{name}: {part}.{k} exceeds tolerance "
+                      f"by {excess:.3g}")
+            else:
+                r = norm_rel(a, b)
+                worst_norm[kind] = max(worst_norm.get(kind, 0.0), r)
+                check(lim[kind] is None or r <= lim[kind],
+                      f"{name}: {part}.{k} norm-wise error {r:.3g}")
+            if part == "params":
+                worst = max(worst, float((a - b).abs().max()))
+    detail = (f"loss max rel {rel:.2e}, first {first:.2e}; norm-wise "
+              + ", ".join(f"{k} {v:.2e}" for k, v in worst_norm.items())
+              + f"; {outside} of {total} elements outside the JAX "
+              "elementwise tolerances")
+    return worst, detail
+
+
+def phase_epoch_vs_plain(device):
+    from qfa_tpu_torch.data.grid import make_grid
+    from qfa_tpu_torch.ops.epoch_kernel import (
+        fused_train_epoch,
+        fused_train_epoch_plain,
+    )
+    from qfa_tpu_torch.train import adam
+
+    from qfa_tpu_torch.train import pick_tiling
+
+    worst = 0.0
+    tb = 64
+    # (label, grid, spectra, batch, tile, epochs, layouts); the last case
+    # is the training CLI's shape in phase 8: 2048 spectra padded to 5
+    # batches of 500 rows (the last backward chunk of each batch holds
+    # 20 of 32 rows), tile 4, 4 epochs, derived layout
+    cases = (("SDSS", SDSS, 4096, 512, tb, 2, ("derived", "plane")),
+             ("DESI", DESI, 512, 256, tb, 1, ("derived", "plane")),
+             ("SDSS CLI shape", SDSS, 2048, 500, pick_tiling(500)[0], 4,
+              ("derived",)))
+    for label, grid_kw, n, batch, tile, n_epochs, layouts in cases:
+        grid = make_grid(**grid_kw)
+        params, mu = seeded_params(grid, device)
+        data = pad_rows(train_problem(grid, params, mu, n, SEED + 21),
+                        -(-n // batch) * batch - n)
+        rows = data["delta"].shape[0]
+        st = adam.init(params)
+        g = torch.Generator().manual_seed(SEED)
+        perm = torch.stack([torch.randperm(rows // tile, generator=g)
+                            for _ in range(n_epochs)])
+        for name in layouts:
+            zabs, mask, kw = layout(grid, data, name)
+            for mxu in (False, True):
+                args = (params, st.m, st.v, data["delta"], data["error"],
+                        zabs, perm, mask)
+                kw2 = dict(kw, epoch=0, n_batches=rows // batch,
+                           n_epochs=n_epochs, tile_batch=tile, mxu_bf16=mxu)
+                got = fused_train_epoch(*args, **kw2)
+                torch.cuda.synchronize()
+                want = fused_train_epoch_plain(*args, **kw2)
+                torch.cuda.synchronize()
+                case = (f"{label} {name} layout, "
+                        f"{'bf16' if mxu else 'f32'} operands")
+                err, detail = compare_epoch(case, got, want,
+                                            "bf16" if mxu else "f32")
+                worst = max(worst, err)
+                say(f"  {case}: n={n} ({rows} rows) batch={batch} "
+                    f"tile={tile} epochs={n_epochs}; params "
+                    f"max_abs_err={err!r}; {detail}")
+    # 3 epochs in one call against 3 chained calls; inert padding rows
+    grid = make_grid(**SDSS)
+    params, mu = seeded_params(grid, device)
+    data = train_problem(grid, params, mu, 4096, SEED + 22)
+    st = adam.init(params)
+    zabs, _, kw = layout(grid, data, "derived")
+    kw.update(n_batches=8, tile_batch=tb, mxu_bf16=True)
+    g = torch.Generator().manual_seed(SEED + 1)
+    perm = torch.stack([torch.randperm(4096 // tb, generator=g)
+                        for _ in range(3)])
+    one = fused_train_epoch(params, st.m, st.v, data["delta"], data["error"],
+                            zabs, perm, epoch=5, n_epochs=3, **kw)
+    p, m, v, losses = params, st.m, st.v, []
+    for e in range(3):
+        out = fused_train_epoch(p, m, v, data["delta"], data["error"], zabs,
+                                perm[e], epoch=5 + e, **kw)
+        p, m, v = out.params, out.m, out.v
+        losses.append(out.loss_sums)
+    torch.cuda.synchronize()
+    same = torch.equal(one.loss_sums, torch.stack(losses)) and all(
+        torch.equal(getattr(getattr(one, part), k), getattr(x, k))
+        for part, x in (("params", p), ("m", m), ("v", v))
+        for k in PARAM_NAMES)
+    check(same, "3 epochs in one call differ from 3 chained calls")
+    say("  SDSS derived layout, bf16 operands: 3 epochs in one call are "
+        "bitwise equal to 3 chained calls")
+    n_tiles = 4096 // tb  # one zero tile after each batch
+    padded = pad_rows(data, 8 * tb)
+    perm_pad = torch.cat([perm[0].reshape(8, -1),
+                          torch.arange(n_tiles, n_tiles + 8)[:, None]],
+                         dim=1).reshape(-1)
+    a = fused_train_epoch(params, st.m, st.v, data["delta"], data["error"],
+                          zabs, perm[0], epoch=0, **kw)
+    b = fused_train_epoch(params, st.m, st.v, padded["delta"],
+                          padded["error"], padded["zq"], perm_pad, epoch=0,
+                          **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(a.loss_sums, b.loss_sums) and torch.equal(
+        a.n_real, b.n_real) and all(
+        torch.equal(getattr(getattr(a, part), k), getattr(getattr(b, part), k))
+        for part in ("params", "m", "v") for k in PARAM_NAMES)
+    check(same, "inert padding rows changed the epoch")
+    say("  SDSS derived layout: a zero tile after each batch changes nothing "
+        "(bitwise)")
+    return worst
+
+
+def write_training_survey(root, grid, n):
+    """n spectra (-999 sentinels in masked pixels) and a training catalog
+    (file,snr,z,num_mask) under root; returns the catalog, the data
+    directory and the file names."""
+    params, mu = seeded_params(grid, torch.device("cpu"))
+    flux, error, mask, zq = (t.numpy() for t in
+                             draw_spectra(params, mu, grid, n, SEED + 31))
+    keep = mask > 0
+    data_dir = os.path.join(root, "train_spectra")
+    os.makedirs(data_dir)
+    names = [f"train-{i:05d}.npz" for i in range(n)]
+    rows = ["file,snr,z,num_mask"]
+    for i, name in enumerate(names):
+        np.savez(os.path.join(data_dir, name),
+                 flux=np.where(keep[i], flux[i], -999.0),
+                 error=np.where(keep[i], error[i], -999.0), z=zq[i])
+        rows.append(f"{name},10.0,{zq[i]:.6f},0")
+    catalog = os.path.join(root, "train-catalog-in.csv")
+    with open(catalog, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return catalog, data_dir, names
+
+
+def phase_train_cli(root, grid, n=2048, epochs=4):
+    """The training main path through the CLI on the kernel, counted from
+    zero; then the same run on the plain version, and a prediction from
+    the trained model."""
+    from qfa_tpu_torch import cli
+    from qfa_tpu_torch.models.params import load_npz
+    from qfa_tpu_torch.ops import epoch_kernel, infer_kernel
+
+    catalog, data_dir, names = write_training_survey(root, grid, n)
+    base = ["--type", "train", "--catalog", catalog, "--data_dir", data_dir,
+            "--data_num", str(n), "--batch_size", "500", "--n_epochs",
+            str(epochs), "--seed", str(SEED), "--device", "cuda"]
+    opts = ["--opts", "TRAIN.SMOOTH_INTERVAL", "2", "TRAIN.SAVE_INTERVAL",
+            "2"]
+    out_k = os.path.join(root, "train_kernel")
+    # the training path's launches are counted from here ...
+    epoch_kernel.LAUNCHES = infer_kernel.LAUNCHES = 0
+    run_k = cli.main(base + ["--output_dir", out_k] + opts)
+    launches = epoch_kernel.LAUNCHES  # ... to here
+    check(launches >= 1, "CLI train launched no epoch kernel")
+    check(infer_kernel.LAUNCHES == 0, "CLI train launched the predict kernel")
+    check(run_k["engine"] == "kernel", f"CLI train engine {run_k['engine']}")
+    with open(os.path.join(out_k, "log.txt")) as f:
+        log = f.read()
+    check("trainer engine: fused CUDA epoch kernel" in log,
+          "CLI train did not take the epoch kernel")
+    check("derived mask + zq-column redshifts" in log,
+          "CLI train did not take the derived layout")
+    with open(os.path.join(out_k, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    check(len(metrics) == epochs and all(np.isfinite(r["loss"])
+                                          for r in metrics),
+          "metrics.jsonl lacks finite per-epoch losses")
+    ckpts = sorted(os.listdir(os.path.join(out_k, "checkpoints")))
+    check(ckpts == sorted(f"{kind}_epoch_{e:02d}.npz"
+                          for kind in ("model_parameters", "state")
+                          for e in range(2, epochs + 1, 2)),
+          f"checkpoints {ckpts}")
+    model = os.path.join(out_k, "model_parameters.npz")
+    params, mu = load_npz(model)
+    check(tuple(params.F.shape) == (grid.npix, NH)
+          and all(bool(torch.isfinite(getattr(params, k)).all())
+                  for k in PARAM_NAMES), "trained model has bad values")
+
+    out_p = os.path.join(root, "train_plain")
+    run_p = cli.main(base + ["--output_dir", out_p] + opts
+                     + ["TRAIN.ENGINE", "xla"])
+    check(epoch_kernel.LAUNCHES == launches,
+          "the plain engine launched the epoch kernel")
+    check(run_p["engine"] == "plain", f"plain run engine {run_p['engine']}")
+    hk, hp = np.asarray(run_k["history"]), np.asarray(run_p["history"])
+    rel = float(np.max(np.abs(hk - hp) / np.abs(hp)))
+    check(rel <= CLI_LOSS_RTOL, f"CLI train losses of kernel and plain "
+          f"engine differ by {rel:.3g}: {hk} vs {hp}")
+
+    pred_catalog = os.path.join(root, "train-predict-catalog.csv")
+    with open(pred_catalog, "w") as f:
+        f.write("\n".join(names[:512]) + "\n")
+    before = infer_kernel.LAUNCHES
+    out_pred = os.path.join(root, "train_predict")
+    timing = cli.main(["--type", "predict", "--catalog", pred_catalog,
+                       "--data_dir", data_dir, "--output_dir", out_pred,
+                       "--resume", model, "--device", "cuda"])
+    check(infer_kernel.LAUNCHES > before and timing["n"] == 512,
+          "predict from the trained model did not run the kernel")
+    with np.load(os.path.join(out_pred, "predict", names[0])) as r:
+        check(all(bool(np.isfinite(r[k]).all()) for k in NPZ_KEYS.values()),
+              "predictions from the trained model are not finite")
+    return launches, run_k, run_p, rel
+
+
+def phase_train_times(device, n=65536, batch=500, plain_reps=1, reps=3):
+    """One epoch of n SDSS spectra at the CLI's batch and tiling, derived
+    layout; kernel and plain version, bf16 operands on and off."""
+    from qfa_tpu_torch.data.grid import make_grid
+    from qfa_tpu_torch.ops.epoch_kernel import (
+        fused_train_epoch,
+        fused_train_epoch_plain,
+    )
+    from qfa_tpu_torch.train import adam, pick_tiling
+
+    grid = make_grid(**SDSS)
+    params, mu = seeded_params(grid, device)
+    n_batches = -(-n // batch)
+    data = pad_rows(train_problem(grid, params, mu, n, SEED + 41),
+                    n_batches * batch - n)
+    tb, _ = pick_tiling(batch)
+    zq, _, kw = layout(grid, data, "derived")
+    st = adam.init(params)
+    perm = torch.randperm(n_batches * batch // tb,
+                          generator=torch.Generator().manual_seed(SEED))
+    out = {}
+    for mxu in (True, False):
+        args = (params, st.m, st.v, data["delta"], data["error"], zq, perm)
+        kw2 = dict(kw, epoch=0, n_batches=n_batches, tile_batch=tb,
+                   mxu_bf16=mxu)
+        runs = {"kernel": lambda: fused_train_epoch(*args, **kw2),
+                "plain": lambda: fused_train_epoch_plain(*args, **kw2)}
+        # the warm-up outputs, held against each other
+        got, want = runs["kernel"](), runs["plain"]()
+        torch.cuda.synchronize()
+        err, detail = compare_epoch(
+            f"one epoch of {n} spectra, {'bf16' if mxu else 'f32'} operands",
+            got, want, f"bf16, {n_batches} updates" if mxu else "f32")
+        samples = {"kernel": [], "plain": []}
+        for order in (("plain", "kernel"), ("kernel", "plain")):
+            for which in order:
+                samples[which].append(time_cuda(
+                    runs[which], reps if which == "kernel" else plain_reps))
+        out[mxu] = {k: statistics.median(v) for k, v in samples.items()}
+        out[mxu].update(max_abs_err=err, detail=detail)
+    return out, n, n_batches, tb
+
+
 def main():
     if not torch.cuda.is_available():
         say("chip_smoke: FAIL: torch.cuda.is_available() is False")
         return 1
     from qfa_tpu_torch.data.grid import make_grid
-    from qfa_tpu_torch.ops import _build, infer_kernel
+    from qfa_tpu_torch.ops import _build, epoch_kernel, infer_kernel
 
     device = torch.device("cuda")
     # 1. device
@@ -418,7 +791,7 @@ def main():
         ckpt, data_dir, catalog, names, raw = write_survey(
             root, params.to(device), mu.to(device), grid, 2048)
         # the main path's launches are counted from here ...
-        infer_kernel.LAUNCHES = 0
+        infer_kernel.LAUNCHES = epoch_kernel.LAUNCHES = 0
         cli_launches, timing, n_sample = phase_cli(
             root, ckpt, data_dir, catalog, names, grid)
         say(f"phase 4 CLI predict: {timing['n']} spectra, read "
@@ -435,6 +808,8 @@ def main():
 
     check(main_launches == cli_launches + serve_launches,
           "launch count moved outside the main path")
+    check(epoch_kernel.LAUNCHES == 0, "the predict path launched the "
+          "epoch kernel")
     times, n = phase_times(device)
     for stats_only, t in times.items():
         mode = "stats_only" if stats_only else "full output"
@@ -442,6 +817,36 @@ def main():
             f"kernel {t['kernel']!r} ms ({n / t['kernel'] * 1e3:.0f} "
             f"spectra/s), plain {t['plain']!r} ms "
             f"({n / t['plain'] * 1e3:.0f} spectra/s)")
+
+    # 7. epoch kernel against plain version
+    say("phase 7 epoch kernel vs plain version on the card:")
+    train_worst = phase_epoch_vs_plain(device)
+
+    # 8. training main path
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+        t0 = time.perf_counter()
+        train_launches, run_k, run_p, rel = phase_train_cli(root, grid)
+        say(f"phase 8 CLI train: {run_k['n']} spectra, batch 500, "
+            f"{len(run_k['history'])} epochs; read {run_k['read_s']:.3f} s, "
+            f"train {run_k['train_s']:.3f} s (kernel) / "
+            f"{run_p['train_s']:.3f} s (plain); {train_launches} epoch-"
+            f"kernel call(s); losses {[round(x, 4) for x in run_k['history']]}"
+            f" match the plain engine to {rel:.2e}; checkpoints, "
+            "metrics.jsonl and model_parameters.npz written; --type predict "
+            "from the trained model ran the prediction kernel; phase "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    # 9. training times
+    ttimes, tn, n_batches, tb = phase_train_times(device)
+    for mxu, t in ttimes.items():
+        say(f"phase 9 times ({smi}), one training epoch, SDSS width, {tn} "
+            f"spectra, batch 500 ({n_batches} batches, tile {tb}), derived "
+            f"layout, {'bf16' if mxu else 'f32'} operands: kernel "
+            f"{t['kernel']!r} ms ({tn / t['kernel'] * 1e3:.0f} spectra/s), "
+            f"plain {t['plain']!r} ms ({tn / t['plain'] * 1e3:.0f} "
+            f"spectra/s); kernel against plain: params max_abs_err="
+            f"{t['max_abs_err']!r}; {t['detail']}")
+        train_worst = max(train_worst, t["max_abs_err"])
     say(json.dumps({"kernels": [{
         "name": "predict_kernel",
         "route": "cuda",
@@ -451,6 +856,15 @@ def main():
         "max_abs_err": worst,
         "ms": times[False]["kernel"],
         "plain_ms": times[False]["plain"],
+    }, {
+        "name": "epoch_kernel",
+        "route": "cuda",
+        "source": "qfa_tpu_torch/csrc/epoch.cu",
+        "replaces": "qfa_tpu/ops/epoch_kernel.py:237",
+        "launches": train_launches,
+        "max_abs_err": train_worst,
+        "ms": ttimes[True]["kernel"],
+        "plain_ms": ttimes[True]["plain"],
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..physics.smoothing import sliding_mean
+
 Tensor = torch.Tensor
 
 __all__ = [
@@ -28,6 +30,8 @@ __all__ = [
     "ParamBounds",
     "PARAM_NAMES",
     "random_init",
+    "clip_params",
+    "smooth_params",
     "save_npz",
     "load_npz",
 ]
@@ -125,6 +129,37 @@ def random_init(
         c0=torch.tensor(0.3, dtype=dtype, device=device),
         beta=torch.tensor(2.0, dtype=dtype, device=device),
     )
+
+
+def clip_params(params: QFAParams,
+                bounds: ParamBounds = ParamBounds()) -> QFAParams:
+    """Project the parameters back into their numerical-stability box (a
+    new module; F is not bounded)."""
+    return QFAParams(
+        F=params.F.detach(),
+        Psi=torch.clamp(params.Psi.detach(), bounds.var_min, bounds.var_max),
+        omega=torch.clamp(params.omega.detach(), bounds.var_min,
+                          bounds.var_max),
+        tau0=torch.clamp(params.tau0.detach(), bounds.tau0_min,
+                         bounds.tau0_max),
+        c0=torch.clamp(params.c0.detach(), bounds.c0_min, bounds.c0_max),
+        beta=torch.clamp(params.beta.detach(), bounds.beta_min,
+                         bounds.beta_max),
+    )
+
+
+def smooth_params(params: QFAParams) -> QFAParams:
+    """Periodic wavelength-axis smoothing of omega, Psi (window 15) and F
+    (window 31): edge-truncated sliding means (a new module)."""
+    with torch.no_grad():
+        return QFAParams(
+            F=sliding_mean(params.F, 31, axis=0),
+            Psi=sliding_mean(params.Psi, 15, axis=0),
+            omega=sliding_mean(params.omega, 15, axis=0),
+            tau0=params.tau0.detach(),
+            c0=params.c0.detach(),
+            beta=params.beta.detach(),
+        )
 
 
 def save_npz(path: str, params: QFAParams, mu) -> None:

@@ -9,7 +9,10 @@ Forward half of ``qfa_tpu.models.qfa``:
 3. batched Nh x Nh Cholesky factorizations and triangular solves.
 
 This is the reference the CUDA prediction kernel (``ops.infer_kernel``)
-is held against, and the path the CLI and server take off the GPU.
+is held against, and the path the CLI and server take off the GPU. The
+training loss (:func:`mean_nll`) and its gradients by ``torch.autograd``
+(:func:`loss_and_grads`) serve held-out validation and are the
+independent check of the epoch kernel's analytic backward.
 """
 
 from __future__ import annotations
@@ -32,6 +35,12 @@ __all__ = [
     "noise_diagonal",
     "batch_factors",
     "batch_nll",
+    "mean_nll",
+    "loss_and_grads",
+    "GradCounts",
+    "grad_counts",
+    "normalize_with_counts",
+    "normalize_grads",
     "make_delta",
     "predict",
 ]
@@ -127,6 +136,96 @@ def batch_nll(
     evaluate to exactly 0."""
     factors, _ = batch_factors(params, batch, options)
     return lowrank.nll(factors)
+
+
+def mean_nll(
+    params: QFAParams,
+    batch: SpectraBatch,
+    options: ModelOptions = ModelOptions(),
+) -> Tensor:
+    """Weighted batch-mean NLL (padding-aware): the training loss."""
+    per = batch_nll(params, batch, options)
+    w = batch.weight.to(per.dtype)
+    return torch.sum(per * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def loss_and_grads(
+    params: QFAParams,
+    batch: SpectraBatch,
+    options: ModelOptions = ModelOptions(),
+    reference_norm: bool = True,
+) -> tuple[Tensor, QFAParams]:
+    """Batch loss and parameter gradients by ``torch.autograd``.
+
+    The summed weighted NLL is differentiated; with ``reference_norm`` the
+    gradients are divided per element by the number of spectra that could
+    have contributed (:func:`normalize_grads`), otherwise by the count of
+    real rows. Returns (mean NLL over real rows, gradients as a
+    :class:`QFAParams` of plain tensors).
+    """
+    from .params import PARAM_NAMES
+
+    # a fresh module: its nn.Parameters are the leaves differentiated
+    leaf = QFAParams(**{k: getattr(params, k).detach().clone()
+                        for k in PARAM_NAMES})
+    with torch.enable_grad():
+        per = batch_nll(leaf, batch, options)
+        w = batch.weight.to(per.dtype)
+        total = torch.sum(per * w)
+        grads = torch.autograd.grad(
+            total, [getattr(leaf, k) for k in PARAM_NAMES])
+    grads = QFAParams(*(g.detach() for g in grads))
+    n_real = torch.clamp(torch.sum(w), min=1.0)
+    if reference_norm:
+        grads = normalize_grads(grads, batch)
+    else:
+        grads = QFAParams(*(getattr(grads, k).detach() / n_real
+                            for k in PARAM_NAMES))
+    return total.detach() / n_real, grads.requires_grad_(False)
+
+
+class GradCounts(NamedTuple):
+    """Per-element contribution counts for the reference-style gradient
+    averaging."""
+
+    pix: Tensor  #: (Npix,) spectra observing each pixel.
+    scalar: Tensor  #: () spectra with at least one observed blue pixel.
+
+
+def grad_counts(batch: SpectraBatch) -> GradCounts:
+    """Count, per gradient element, how many spectra contributed."""
+    mask = batch.mask.to(torch.float32)
+    w = batch.weight.to(mask.dtype)[:, None]
+    pix = torch.sum(mask * w, dim=0)
+    any_blue = torch.sum(mask[:, : batch.nb] * w, dim=1) > 0
+    return GradCounts(pix=pix, scalar=torch.sum(any_blue.to(mask.dtype)))
+
+
+def normalize_with_counts(grads: QFAParams, counts: GradCounts) -> QFAParams:
+    """Divide summed gradients by per-element contribution counts; an
+    element no spectrum contributed to gets gradient 0 (not 0/0)."""
+
+    def div(g, c):
+        return torch.where(c > 0, g / torch.clamp(c, min=1.0),
+                           torch.zeros_like(g))
+
+    g = {k: getattr(grads, k).detach() for k in
+         ("F", "Psi", "omega", "tau0", "c0", "beta")}
+    nb = g["omega"].shape[0]
+    return QFAParams(
+        F=div(g["F"], counts.pix[:, None]),
+        Psi=div(g["Psi"], counts.pix),
+        omega=div(g["omega"], counts.pix[:nb]),
+        tau0=div(g["tau0"], counts.scalar),
+        c0=div(g["c0"], counts.scalar),
+        beta=div(g["beta"], counts.scalar),
+    ).requires_grad_(False)
+
+
+def normalize_grads(grads: QFAParams, batch: SpectraBatch) -> QFAParams:
+    """Reference-compatible per-element gradient averaging: each element
+    over the spectra observing that pixel (:func:`grad_counts`)."""
+    return normalize_with_counts(grads, grad_counts(batch))
 
 
 def make_delta(flux: Tensor, mu: Tensor, amp: Tensor, mask: Tensor) -> Tensor:

@@ -1,10 +1,13 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and bind them with ctypes.
 
-The kernels have a plain C interface (no PyTorch headers), so one nvcc
-call builds them in seconds:
+The kernels have a plain C interface (no PyTorch headers). Each source is
+compiled by its own nvcc process, all started together, and the objects
+are linked into one shared library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o libqfa_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.cu.o csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o libqfa_kernels.so *.cu.o
 
 The library is built at first use into ``_build/<hash of the sources and
 flags>/`` inside the package (listed in ``.gitignore``), written under a
@@ -31,12 +34,15 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libqfa_kernels.so"
 
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: flags of each source's compile step
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *_ARCH,
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # register / shared-memory / spill report, kept in build.log
     "-Xptxas", "-v",
 )
+_LINK_FLAGS = (*_ARCH, "-shared")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -54,6 +60,24 @@ SIGNATURES = {
             _I, _I,  # derive_mask, derive_zabs
             _P, _P, _P, _P, _P, _P,  # ll, n_obs, hmean, hcov, cont, std
             _I, _P,  # device, stream
+        ],
+        ctypes.c_int,
+    ),
+    "qfa_train_epoch_f32": (
+        [
+            _P, _P, _P, _I,  # delta, error, zabs, zabs_ld
+            _P, _P, _P,  # mask, loglam, perm
+            _I, _I, _I, _I, _I,  # n_tiles, tile_batch, tiles_per_batch,
+            # n_batches, n_epochs
+            _I, _I, _I,  # npix, nb, nh
+            _I, _I, _I,  # derive_mask, derive_zabs, mxu_bf16
+            _P, _P, _P, _P, _P,  # F, psi, omega, mF, vF (in place)
+            _P, _P, _P, _P, _P,  # mpsi, vpsi, momega, vomega, scal
+            _P, _P,  # hp, sched (host float32 arrays)
+            _P, _P, _P, _P, _P, _P,  # S, alpha, rowstat, partials, srows,
+            # books (scratch)
+            _P, _P,  # loss_out, nreal_out
+            _I, _I, _P,  # n_chunks, device, stream
         ],
         ctypes.c_int,
     ),
@@ -92,31 +116,39 @@ def _nvcc() -> str:
     )
 
 
+def _run_together(cmds: list[list[str]]) -> str:
+    """Run the commands at once; return their joined output, or raise
+    with the first failure's command and output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}"
+                               f":\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build_library() -> Path:
-    """Compile ``csrc/*.cu`` into the shared library unless the build for
-    these exact sources exists; return its path. Raises with nvcc's output
-    if the build fails."""
+    """Compile ``csrc/*.cu`` (one nvcc per source, all at once) and link
+    the shared library, unless the build for these exact sources exists;
+    return its path. Raises with nvcc's output if a step fails."""
     out_dir = _build_dir()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=".tmp-", suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    with tempfile.TemporaryDirectory(prefix=".tmp-", dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, f"{s.name}.o") for s in srcs]
+        tmp_lib = os.path.join(tmp, LIB_NAME)
+        log = _run_together([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+                             for s, o in zip(srcs, objs)])
+        log += _run_together([[nvcc, *_LINK_FLAGS, "-o", tmp_lib, *objs]])
+        (out_dir / "build.log").write_text(log)
+        os.replace(tmp_lib, lib)
     return lib
 
 

@@ -1,5 +1,6 @@
-"""Domain physics: optical-depth laws and Lyman-series data."""
+"""Domain physics: optical-depth laws, Lyman-series data, smoothing."""
 
+from .smoothing import sliding_mean, smooth_curve
 from .lyman import COEFF, LYA_WAVELENGTH, N_LINES, OSCILLATOR_STRENGTH, WAVELENGTH
 from .tau import (
     TAU_LAWS,
@@ -27,6 +28,8 @@ __all__ = [
     "n_contributing_lines",
     "omega_func",
     "resolve_tau",
+    "sliding_mean",
+    "smooth_curve",
     "tau",
     "tau_becker",
     "tau_fg",

@@ -1,14 +1,18 @@
 """Run logging: the run layout of ``qfa_tpu.utils.logging``, a
 ``config.yaml`` dump and a ``log.txt`` FileHandler in the output
-directory. (The training half's JSONL metrics stream comes with it.)
+directory, and the JSONL metrics stream of training runs
+(``metrics.jsonl``).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
+import time
+from typing import IO, Any
 
-__all__ = ["setup_run_dir", "make_logger"]
+__all__ = ["setup_run_dir", "make_logger", "MetricsWriter"]
 
 
 def setup_run_dir(output_dir: str, config=None) -> str:
@@ -35,3 +39,32 @@ def make_logger(output_dir: str, name: str = "qfa_tpu_torch") -> logging.Logger:
     )
     logger.addHandler(handler)
     return logger
+
+
+class MetricsWriter:
+    """Append-only JSONL metrics stream (one record per epoch), each
+    record stamped with ``wall_s`` since the writer opened."""
+
+    def __init__(self, output_dir: str, filename: str = "metrics.jsonl"):
+        os.makedirs(output_dir, exist_ok=True)
+        self.path = os.path.join(output_dir, filename)
+        self._fh: IO | None = open(self.path, "a")
+        self._t0 = time.time()
+
+    def write(self, **record: Any) -> None:
+        if self._fh is None:
+            raise ValueError(f"metrics stream {self.path} is closed")
+        record.setdefault("wall_s", round(time.time() - self._t0, 3))
+        self._fh.write(json.dumps(record) + "\n")
+        self._fh.flush()
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+
+    def __enter__(self) -> "MetricsWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

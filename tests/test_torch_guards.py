@@ -1,7 +1,9 @@
 """Guards of the port that hold on any machine: it never imports JAX or
 the JAX package; a request for the GPU on a machine without one raises
 instead of running on the CPU; the kernel build fails loudly; the tau-law
-table still refuses callables; CPU calls never count as kernel launches."""
+table still refuses callables; CPU calls never count as kernel launches;
+the modes that are not ported yet raise naming their ROADMAP item. And
+the CLI's training run on the CPU, end to end."""
 
 import ast
 import os
@@ -10,15 +12,19 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
+from qfa_tpu.models import load_npz as jax_load_npz
 from qfa_tpu.ops.fused_step import TAU_LAW_ABC as JAX_TAU_LAW_ABC
 from qfa_tpu_torch.cli import main as port_main
+from qfa_tpu_torch.data.loader import ResidualDataset
 from qfa_tpu_torch.models.params import random_init
-from qfa_tpu_torch.ops import _build, common
+from qfa_tpu_torch.ops import _build, common, epoch_kernel
 from qfa_tpu_torch.ops import infer_kernel
 from qfa_tpu_torch.serve import QFAPredictor
+from qfa_tpu_torch.train import TrainConfig, adam, fit_fused
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -80,9 +86,93 @@ def test_predictor_device_cuda_raises_without_gpu(no_gpu, tmp_path):
         QFAPredictor(str(tmp_path / "missing.npz"), device="cuda")
 
 
-def test_cli_train_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A6"):
-        port_main(["--type", "train"])
+def write_training_set(root, n=40, seed=0):
+    """n spectra on the 54-pixel grid of ``GRID_OPTS`` (a few -999
+    sentinels each) and a ``file,snr,z,num_mask`` catalog; returns the
+    catalog path and the data directory."""
+    rng = np.random.default_rng(seed)
+    data_dir = root / "spectra"
+    data_dir.mkdir()
+    lines = ["file,snr,z,num_mask"]
+    for i in range(n):
+        flux = (1.0 + 0.1 * rng.normal(size=54)).astype(np.float32)
+        error = rng.uniform(0.05, 0.15, 54).astype(np.float32)
+        flux[rng.integers(0, 54, 3)] = -999.0
+        z = rng.uniform(2.0, 3.5)
+        np.savez(data_dir / f"s{i:03d}.npz", flux=flux, error=error, z=z)
+        lines.append(f"s{i:03d}.npz,10.0,{z:.4f},0")
+    (root / "train.csv").write_text("\n".join(lines) + "\n")
+    return str(root / "train.csv"), str(data_dir)
+
+
+GRID_OPTS = ["DATA.LAMMIN", "1150.0", "DATA.LAMMAX", "1300.0",
+             "DATA.LOGLAM_DELTA", "0.001"]
+
+
+def test_cli_train_writes_run_and_resumes(tmp_path):
+    """--type train --device cpu writes the run directory; the model npz
+    loads in the JAX package; a second run with more epochs auto-resumes
+    from the newest full state."""
+    catalog, data_dir = write_training_set(tmp_path)
+    out = tmp_path / "run"
+
+    def train(epochs):
+        return port_main([
+            "--type", "train", "--catalog", catalog, "--data_dir", data_dir,
+            "--output_dir", str(out), "--data_num", "32", "--batch_size",
+            "12", "--n_epochs", str(epochs), "--nh", "3", "--device", "cpu",
+            "--opts", "TRAIN.SMOOTH_INTERVAL", "2", "TRAIN.SAVE_INTERVAL",
+            "2", *GRID_OPTS])
+
+    first = train(4)
+    assert first["engine"] == "plain" and first["n"] == 32
+    assert len(first["history"]) == 4 and np.isfinite(first["history"]).all()
+    names = set(os.listdir(out))
+    assert {"config.yaml", "log.txt", "metrics.jsonl", "model_parameters.npz",
+            "train-catalog.csv", "checkpoints"} <= names
+    assert sorted(os.listdir(out / "checkpoints")) == [
+        "model_parameters_epoch_02.npz", "model_parameters_epoch_04.npz",
+        "state_epoch_02.npz", "state_epoch_04.npz"]
+    metrics = (out / "metrics.jsonl").read_text().splitlines()
+    assert len(metrics) == 4 and '"loss"' in metrics[0]
+    params, mu = jax_load_npz(str(out / "model_parameters.npz"))
+    assert params.F.shape == (54, 3) and params.omega.shape == (25,)
+    assert mu.shape == (54,) and np.isfinite(np.asarray(params.F)).all()
+    log = (out / "log.txt").read_text()
+    assert "whole-epoch engine on the plain torch version" in log
+    assert "derived mask + zq-column redshifts" in log
+
+    second = train(6)
+    assert len(second["history"]) == 2
+    log = (out / "log.txt").read_text()
+    assert "auto-resumed full training state" in log and "(epoch 4)" in log
+
+
+def test_cli_train_device_cuda_raises_without_gpu(no_gpu, tmp_path):
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_main(["--type", "train", "--catalog", "none.csv",
+                   "--output_dir", str(out), "--device", "cuda"])
+    assert not out.exists()  # failed before touching the run directory
+
+
+def test_modes_not_ported_raise_naming_roadmap(tmp_path):
+    params = random_init(30, 10, 2, generator=torch.Generator().manual_seed(0))
+    st = adam.init(params)
+    x = torch.full((8, 30), 0.1)
+    data = ResidualDataset(delta=x, error=x, zabs=x[:, :10], mask=None)
+    with pytest.raises(NotImplementedError, match="A10"):
+        epoch_kernel.fused_train_epoch(
+            params, st.m, st.v, x, x, x[:, :10], torch.arange(2), epoch=0,
+            n_batches=1, tile_batch=4, sync_grads=True)
+    for kw in (dict(mesh=object()), dict(dp_exact=True)):
+        with pytest.raises(NotImplementedError, match="A10"):
+            fit_fused(params, data, np.ones(30), TrainConfig(n_epochs=1), **kw)
+    with pytest.raises(NotImplementedError, match="A8"):
+        port_main(["--type", "train", "--device", "cpu", "--output_dir",
+                   str(tmp_path / "o"), "--opts", "RUNTIME.PROFILE_DIR",
+                   str(tmp_path / "prof")])
+    assert epoch_kernel.LAUNCHES == 0
 
 
 def test_tau_law_abc_rejects_callables_and_matches_jax():

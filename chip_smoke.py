@@ -30,15 +30,30 @@ the card, at the full width of the SDSS model the repository ships (Npix
    version (``TRAIN.ENGINE xla``) for comparison, then ``--type predict``
    from the trained model through the prediction kernel;
 9. times of one training epoch of 65536 spectra, kernel and plain, and
-   the two epochs' outputs held against each other as in phase 7.
+   the two epochs' outputs held against each other as in phase 7;
+10. the step kernel against its plain version on the same CUDA tensors:
+    SDSS width at batch 500 with 116 weight-0 rows duplicating row 0 (the
+    stream's tail batch of 384 real rows), DESI width at batch 128, each
+    tau law at batch 64, moderate and low-noise data;
+11. the streaming main path: ``fit_streaming(step_fn=make_fused_step_fn(
+    cfg), device="cuda")`` over 16384 SDSS spectra in host RAM, batch 500,
+    2 epochs, checkpoints and smoothing every epoch, 512 held-out
+    spectra; 66 step-kernel launches and none of the other kernels; the
+    same run on the plain step, and one epoch on the autograd step;
+12. times: one step at batch 500 (kernel, plain version, autograd
+    ``loss_and_grads``), the whole fused step function, and one streaming
+    epoch of 16384 spectra (wall, H2D copy and device busy share by
+    ``torch.profiler``, spectra/s).
 
 Prints a JSON line of kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
 that line. Imports nothing of JAX.
 """
 
+import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -119,8 +134,31 @@ EPOCH_LIMITS = {
                           "scalar moments": None},
 }
 #: training CLI: per-epoch losses of the kernel engine against the plain
-#: engine, both with bf16 operands (the CLI default), over 4 epochs
+#: engine, both with bf16 operands (the CLI default), over 4 epochs; and
+#: fit_streaming on the step kernel against the plain step (phase 11)
 CLI_LOSS_RTOL = 1e-5
+#: step kernel against its plain version (phase 10): the CPU parity
+#: tests' form (tests/test_torch_step.py): loss sum rtol 1e-5 (low-noise
+#: data 2e-4, the Woodbury cancellation above), counts exact, each
+#: gradient to atol STEP_GRAD_REL[k] * max|g|: 1e-4 for F, Psi and omega.
+#: Widened to 5e-4 for the scalar gradients and for every gradient of
+#: low-noise data: each is a sum over the batch's rows and pixels that
+#: cancels (the control moves beta by 116 % of max|g|), so float32
+#: summation order alone moves it by up to 1.32e-4 of max|g| (witness:
+#: the plain version on the CPU against itself on the card, beta at
+#: batch 64) and by 9.31e-5 for low-noise Psi, while leaving one real row
+#: out (control) moves every gradient by >= 2.73e-3 (on an H100 by this
+#: phase; PERF.md section 6). The phase prints the three readings per
+#: case and checks that every control exceeds its limit.
+STEP_LOSS_RTOL = 1e-5
+STEP_GRAD_REL = {"F": 1e-4, "Psi": 1e-4, "omega": 1e-4, "tau0": 5e-4,
+                 "c0": 5e-4, "beta": 5e-4}
+LOW_NOISE_GRAD_REL = dict.fromkeys(STEP_GRAD_REL, 5e-4)
+TAU_LAWS = ("becker", "fg", "kamble", "mock")
+#: the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
+#: bytes/s and fp32 FLOP/s outside the tensor cores, for bound_ms
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 PARAM_NAMES = ("F", "Psi", "omega", "tau0", "c0", "beta")
 NPZ_KEYS = {"ll": "ll", "hmean": "hmean", "hcov": "hcov",
             "continuum": "cont", "continuum_std": "uncertainty"}
@@ -432,13 +470,13 @@ def phase_times(device, n=65536, reps=5):
     return out, n
 
 
-def train_problem(grid, params, mu, n, seed):
+def train_problem(grid, params, mu, n, seed, regime="moderate"):
     """Residual planes of n drawn spectra on the params' device, with the
     zabs plane, the mask and the zq column."""
     from qfa_tpu_torch.models.qfa import absorption
     from qfa_tpu_torch.ops.common import zq_column
 
-    flux, error, mask, zq = draw_spectra(params, mu, grid, n, seed)
+    flux, error, mask, zq = draw_spectra(params, mu, grid, n, seed, regime)
     zabs = torch.tensor(grid.zabs(zq.cpu().numpy()), dtype=torch.float32,
                         device=flux.device)
     delta = (flux - mu * absorption(zabs, grid.nr)) * mask
@@ -747,12 +785,377 @@ def phase_train_times(device, n=65536, batch=500, plain_reps=1, reps=3):
     return out, n, n_batches, tb
 
 
-def main():
+def step_batch(data, n_real=None):
+    """A SpectraBatch of the drawn planes; with ``n_real``, the stream's
+    tail batch: the first n_real rows, then weight-0 copies of row 0."""
+    from qfa_tpu_torch.data.batch import SpectraBatch
+
+    n = data["delta"].shape[0]
+    idx = torch.arange(n, device=data["delta"].device)
+    weight = torch.ones(n, device=idx.device)
+    if n_real is not None:
+        idx[n_real:] = 0
+        weight[n_real:] = 0.0
+    return SpectraBatch(delta=data["delta"][idx], error=data["error"][idx],
+                        zabs=data["zabs"][idx], mask=data["mask"][idx],
+                        weight=weight)
+
+
+def grad_rel(a, b):
+    """max|a - b| / max|b| of each gradient."""
+    out = {}
+    for k in PARAM_NAMES:
+        x = getattr(a.grads, k).detach().cpu()
+        y = getattr(b.grads, k).detach().cpu()
+        out[k] = float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+    return out
+
+
+def compare_step(name, got, want, loss_rtol, grad_rel_lim):
+    """Step kernel against plain outputs: loss sum (relative), counts
+    exact, gradient k to atol grad_rel_lim[k] * max|g|. Returns the max
+    abs gradient error, the per-gradient readings and the failures."""
+    bad = []
+    lk, lp = float(got.loss_sum), float(want.loss_sum)
+    rel = abs(lk - lp) / abs(lp)
+    if not (np.isfinite(lk) and rel <= loss_rtol):
+        bad.append(f"loss sums differ by {rel:.3g} ({lk!r} vs {lp!r})")
+    if not (torch.equal(got.counts.pix, want.counts.pix)
+            and float(got.counts.scalar) == float(want.counts.scalar)):
+        bad.append("counts differ")
+    worst = 0.0
+    for k in PARAM_NAMES:
+        a = getattr(got.grads, k).detach()
+        if not bool(torch.isfinite(a).all()):
+            bad.append(f"grads.{k} not finite")
+        worst = max(worst, float((a - getattr(want.grads, k)).abs().max()))
+    readings = grad_rel(got, want)
+    bad += [f"grads.{k} differ by {r:.3g} of max|g|"
+            for k, r in readings.items() if not r <= grad_rel_lim[k]]
+    return worst, rel, readings, [f"{name}: {b}" for b in bad]
+
+
+def phase_step_vs_plain(device):
+    """Each case: the kernel against the plain version on the card, and
+    two readings beside it: the witness (the plain version on the CPU
+    against itself on the card: same code, other float32 summation order)
+    and the control (the plain version with one real row's weight set to
+    0, what a kernel that dropped a row would give)."""
+    from qfa_tpu_torch.data.grid import make_grid
+    from qfa_tpu_torch.models.params import QFAParams
+    from qfa_tpu_torch.ops.fused_step import (
+        fused_loss_grads,
+        fused_loss_grads_plain,
+    )
+
+    worst, failures = 0.0, []
+    # (label, grid, rows, real rows or None, regime, tau law)
+    cases = [("SDSS tail batch", SDSS, 500, 384, "moderate", "becker"),
+             ("DESI", DESI, 128, None, "moderate", "becker"),
+             ("SDSS low-noise tail batch", SDSS, 500, 384, "low-noise",
+              "becker")]
+    cases += [(f"SDSS {law}", SDSS, 64, None, "moderate", law)
+              for law in TAU_LAWS]
+    for label, grid_kw, n, n_real, regime, law in cases:
+        grid = make_grid(**grid_kw)
+        params, mu = seeded_params(grid, device, regime)
+        batch = step_batch(train_problem(grid, params, mu, n, SEED + 61 + n,
+                                         regime), n_real)
+        got = fused_loss_grads(params, batch, tau_which=law)
+        torch.cuda.synchronize()
+        want = fused_loss_grads_plain(params, batch, tau_which=law)
+        torch.cuda.synchronize()
+        low = regime == "low-noise"
+        lim = LOW_NOISE_GRAD_REL if low else STEP_GRAD_REL
+        err, rel, readings, bad = compare_step(
+            label, got, want, LOW_NOISE_LL_RTOL if low else STEP_LOSS_RTOL,
+            lim)
+        failures += bad
+        if n_real is not None and not (
+                float(got.counts.scalar) <= n_real
+                and float(got.counts.pix.max()) <= n_real):
+            failures.append(f"{label}: weight-0 rows were counted")
+        cpu = fused_loss_grads_plain(
+            QFAParams(**{k: getattr(params, k).detach().cpu()
+                         for k in PARAM_NAMES}),
+            type(batch)(*(t.cpu() for t in batch)), tau_which=law)
+        witness = grad_rel(cpu, want)
+        weight = batch.weight.clone()
+        weight[1] = 0.0
+        control = grad_rel(fused_loss_grads_plain(
+            params, batch._replace(weight=weight), tau_which=law), want)
+        failures += [f"{label}: the control moves grads.{k} by only "
+                     f"{control[k]:.3g}, inside its limit {lim[k]:g}"
+                     for k in PARAM_NAMES if not control[k] > lim[k]]
+        worst = max(worst, err)
+        say(f"  {label} ({regime}, {law}): rows={n} real="
+            f"{n if n_real is None else n_real} npix={grid.npix}; loss rel "
+            f"{rel:.2e}; counts exact; grads max_abs_err={err!r}; "
+            "max|kernel - plain| / max|plain| (witness, control): "
+            + ", ".join(f"{k} {readings[k]:.2e} ({witness[k]:.2e}, "
+                        f"{control[k]:.2e})" for k in PARAM_NAMES))
+    check(not failures, "; ".join(failures))
+    return worst
+
+
+def streaming_problem(device, n=16384, n_val=512):
+    """n SDSS-width training spectra in host RAM (HostResiduals, numpy)
+    and n_val held-out spectra (a CPU ResidualDataset), drawn on the card;
+    start parameters and mu on the CPU."""
+    from qfa_tpu_torch.data.grid import make_grid
+    from qfa_tpu_torch.data.loader import ResidualDataset
+    from qfa_tpu_torch.data.streaming import HostResiduals
+
+    grid = make_grid(**SDSS)
+    params, mu = seeded_params(grid, device)
+    data = train_problem(grid, params, mu, n + n_val, SEED + 51)
+    planes = ("delta", "error", "zabs", "mask")
+    host = HostResiduals(*(data[k][:n].cpu().numpy() for k in planes))
+    val = ResidualDataset(*(data[k][n:].cpu() for k in planes))
+    params, mu = seeded_params(grid, torch.device("cpu"))
+    return grid, host, val, params, mu
+
+
+def phase_streaming(root, problem, device):
+    """The streaming main path on the step kernel, counted from zero; then
+    the same run on the plain step and one epoch on the autograd step."""
+    import logging
+
+    from qfa_tpu_torch.ops import epoch_kernel, fused_step, infer_kernel
+    from qfa_tpu_torch.train import (
+        TrainConfig,
+        fit_streaming,
+        make_fused_step_fn,
+    )
+
+    grid, host, val, params, mu = problem
+    cfg = TrainConfig(n_epochs=2, batch_size=500, save_interval=1,
+                      smooth_interval=1, stop_on_negative_loss=False)
+    logger = logging.getLogger("chip_smoke.streaming")
+    logger.setLevel(logging.INFO)
+    messages = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    logger.addHandler(Keep())
+    out_k = os.path.join(root, "stream_kernel")
+    t0 = time.perf_counter()
+    # the streaming path's launches are counted from here ...
+    fused_step.LAUNCHES = epoch_kernel.LAUNCHES = infer_kernel.LAUNCHES = 0
+    pk, hk = fit_streaming(params, host, mu, cfg, seed=SEED,
+                           step_fn=make_fused_step_fn(cfg),
+                           output_dir=out_k, val_data=val, logger=logger,
+                           device=device)
+    launches = fused_step.LAUNCHES  # ... to here
+    wall_k = time.perf_counter() - t0
+    n_batches = -(-host.size // cfg.batch_size)
+    check(launches == cfg.n_epochs * n_batches,
+          f"fit_streaming launched the step kernel {launches} times, "
+          f"expected {cfg.n_epochs * n_batches}")
+    check(epoch_kernel.LAUNCHES == 0 and infer_kernel.LAUNCHES == 0,
+          "fit_streaming launched the epoch or the predict kernel")
+    check(len(hk) == cfg.n_epochs and bool(np.isfinite(hk).all()),
+          f"streaming losses {hk}")
+    check(sum("val_loss" in m for m in messages) == cfg.n_epochs,
+          "validation did not run every epoch")
+    ckpts = sorted(os.listdir(os.path.join(out_k, "checkpoints")))
+    check(ckpts == sorted(f"{kind}_epoch_{e:02d}.npz"
+                          for kind in ("model_parameters", "state")
+                          for e in range(1, cfg.n_epochs + 1)),
+          f"checkpoints {ckpts}")
+    with np.load(os.path.join(out_k, "checkpoints",
+                              f"state_epoch_{cfg.n_epochs:02d}.npz")) as f:
+        check(int(f["epoch"]) == cfg.n_epochs, "full state epoch counter")
+        check(np.array_equal(f["F"], pk.F.detach().cpu().numpy()),
+              "the last checkpoint is not the returned model")
+    check(tuple(pk.F.shape) == (grid.npix, NH)
+          and all(bool(torch.isfinite(getattr(pk, k)).all())
+                  for k in PARAM_NAMES), "trained model has bad values")
+
+    t0 = time.perf_counter()
+    pp, hp = fit_streaming(params, host, mu, cfg, seed=SEED,
+                           step_fn=make_fused_step_fn(cfg, plain=True),
+                           device=device)
+    wall_p = time.perf_counter() - t0
+    check(fused_step.LAUNCHES == launches,
+          "the plain step launched the step kernel")
+    rel = float(np.max(np.abs(np.asarray(hk) - hp) / np.abs(hp)))
+    check(rel <= CLI_LOSS_RTOL, f"streaming losses of the step kernel and "
+          f"the plain step differ by {rel:.3g}: {hk} vs {hp}")
+    t0 = time.perf_counter()
+    _, ha = fit_streaming(params, host, mu,
+                          TrainConfig(n_epochs=1, batch_size=500,
+                                      stop_on_negative_loss=False),
+                          seed=SEED, device=device)
+    wall_a = time.perf_counter() - t0
+    check(np.isfinite(ha[0]), "autograd streaming loss not finite")
+    return dict(launches=launches, hk=hk, hp=hp, ha=ha, rel=rel,
+                wall_k=wall_k, wall_p=wall_p, wall_a=wall_a,
+                n_batches=n_batches)
+
+
+def profile_run(run):
+    """Run ``run()`` under torch.profiler. Returns (wall s, device time
+    by kernel or copy name in s, H2D copy s, device busy share of the
+    wall); the last three are None when the profiler sees no device
+    activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events()
+           if getattr(e, "device_type", None) == DeviceType.CUDA]
+    if not dev:
+        return wall, None, None, None
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() * 1e-6
+    h2d = sum(v for k, v in by_name.items() if "HtoD" in k)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s_, e_ in spans[1:]:
+        if s_ > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy += cur_e - cur_s
+    return wall, by_name, h2d, busy * 1e-6 / wall
+
+
+def phase_step_times(device, problem, reps=20):
+    """One step at SDSS width and batch 500 (kernel, plain version,
+    autograd loss_and_grads; the whole fused step function), and one
+    streaming epoch of the problem's spectra on the step kernel."""
+    from qfa_tpu_torch.data.streaming import stream_batches
+    from qfa_tpu_torch.models.qfa import loss_and_grads
+    from qfa_tpu_torch.ops.fused_step import (
+        fused_loss_grads,
+        fused_loss_grads_plain,
+    )
+    from qfa_tpu_torch.train import TrainConfig, TrainState, adam
+    from qfa_tpu_torch.train import make_fused_step_fn, make_step_fn
+
+    grid, host = problem[:2]
+    params, _ = seeded_params(grid, device)
+    batch = step_batch({k: torch.from_numpy(getattr(host, k)[:500]).to(device)
+                        for k in ("delta", "error", "zabs", "mask")})
+    cfg = TrainConfig(batch_size=500)
+    step = make_fused_step_fn(cfg)
+    state = TrainState(params, adam.init(params))
+    runs = {"kernel": lambda: fused_loss_grads(params, batch),
+            "plain": lambda: fused_loss_grads_plain(params, batch),
+            "autograd": lambda: loss_and_grads(params, batch),
+            "step function": lambda: step(state, batch)}
+    for fn in runs.values():  # warm-up
+        fn()
+    torch.cuda.synchronize()
+    # neither step function waits for the card: any synchronizing CUDA
+    # call inside one raises in this mode
+    autograd_step = make_step_fn(cfg)
+    autograd_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state, batch)
+        autograd_step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    samples = {k: [] for k in runs}
+    for order in (tuple(runs), tuple(reversed(runs))):
+        for which in order:
+            samples[which].append(time_cuda(runs[which], reps))
+    out = {k: statistics.median(v) for k, v in samples.items()}
+
+    def epoch(seed):
+        st = state
+        for b in stream_batches(host, cfg.batch_size,
+                                np.random.default_rng(seed), device=device):
+            st, _ = step(st, b)
+        return st
+
+    # device time of the kernel's four stages per call
+    calls = 20
+    _, stages, _, _ = profile_run(
+        lambda: [fused_loss_grads(params, batch) for _ in range(calls)])
+    out["stages_us"] = None if stages is None else {
+        (re.search(r"\w+_kernel(<\d+>)?", k) or re.match(".{0,40}", k))[0]:
+        v / calls * 1e6 for k, v in stages.items()}
+    epoch(0)  # warm-up (pinned staging buffers, streams)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch(1)
+    torch.cuda.synchronize()
+    out["epoch_wall_s"] = time.perf_counter() - t0
+    _, _, out["h2d_s"], out["busy"] = profile_run(lambda: epoch(2))
+    out["n"] = host.size
+    return out, batch
+
+
+def bound(n_bytes, flops):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    card's HBM rate and the fp32 operations over its fp32 peak."""
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / FP32_FLOP_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bounds(grid, n_pred, n_epoch, n_batches, tile, batch):
+    """bound_ms of each kernel at the shapes it was timed at: every input
+    read once and every output written once, and the FMAs of its products
+    (2 operations each; the exp/log/pow chain is not counted). Per (row,
+    pixel): predict K triangle + W, continuum + std (2 ntri + 2 nh);
+    epoch and step forward K + W, backward dw, du, dG, dF (3 (ntri + nh))."""
+    npix, nb = grid.npix, grid.nb
+    ntri = NH * (NH + 1) // 2
+    params = 4 * (npix * NH + npix + nb + 3)
+    rows = n_batches * 500  # phase 9's padded dataset (batch 500)
+    # predict: flux, error, zq column, loglam, mu, params in; ll, n_obs,
+    # hmean, hcov, continuum, std out
+    pred = bound(4 * (2 * n_pred * npix + 2 * n_pred + 2 * npix) + params
+                 + 4 * n_pred * (2 + NH + NH * NH + 2 * npix),
+                 2 * (2 * ntri + 2 * NH) * n_pred * npix)
+    # epoch: delta, error, zq column, loglam, tile permutation, params and
+    # both moments in and out, loss sums and n_real out
+    ep = bound(4 * (2 * rows * npix + 2 * rows + npix) + 4 * (rows // tile)
+               + 6 * params + 8 * n_batches,
+               2 * 3 * (ntri + NH) * n_epoch * npix)
+    st = bound(nbytes(batch.delta, batch.error, batch.zabs, batch.mask,
+                      batch.weight) + params
+               + 4 * (npix * NH + npix + nb + npix + 5),
+               2 * 3 * (ntri + NH) * batch.delta.shape[0] * npix)
+    return pred, ep, st
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run after phases 1-2 "
+                    "(e.g. 10,11,12); a partial run prints no kernels line "
+                    "and no ok line")
+    args = ap.parse_args(argv)
+    only = {int(x) for x in args.only.split(",") if x}
+
+    def want(*phases):
+        return not only or bool(only & set(phases))
+
     if not torch.cuda.is_available():
         say("chip_smoke: FAIL: torch.cuda.is_available() is False")
         return 1
     from qfa_tpu_torch.data.grid import make_grid
-    from qfa_tpu_torch.ops import _build, epoch_kernel, infer_kernel
+    from qfa_tpu_torch.ops import _build, epoch_kernel, fused_step, infer_kernel
 
     device = torch.device("cuda")
     # 1. device
@@ -781,91 +1184,155 @@ def main():
                                    and " 0 bytes spill" not in line):
             say(f"  {line.strip()}")
 
-    # 3. kernel against plain version
-    say("phase 3 kernel vs plain version on the card:")
-    worst = phase_kernel_vs_plain(device)
+    def zero_counts():
+        infer_kernel.LAUNCHES = epoch_kernel.LAUNCHES = 0
+        fused_step.LAUNCHES = 0
 
     grid = make_grid(**SDSS)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        params, mu = seeded_params(grid, torch.device("cpu"))
-        ckpt, data_dir, catalog, names, raw = write_survey(
-            root, params.to(device), mu.to(device), grid, 2048)
-        # the main path's launches are counted from here ...
-        infer_kernel.LAUNCHES = epoch_kernel.LAUNCHES = 0
-        cli_launches, timing, n_sample = phase_cli(
-            root, ckpt, data_dir, catalog, names, grid)
-        say(f"phase 4 CLI predict: {timing['n']} spectra, read "
-            f"{timing['read_s']:.3f} s, device {timing['predict_s']:.3f} s, "
-            f"write {timing['write_s']:.3f} s; {cli_launches} launch(es); "
-            f"{n_sample} spectra match the CPU plain path")
-        serve_launches, latencies, pred, responses = phase_serving(ckpt, raw)
-        main_launches = infer_kernel.LAUNCHES  # ... to here
-        check_responses(pred, responses, raw)
-        say("phase 5 serving: /healthz engine fused; " + ", ".join(
-            f"{n} spectra {dt * 1e3:.1f} ms" for n, dt in latencies)
-            + f" (HTTP, host clock); {serve_launches} launch(es); "
-            "responses equal the direct call")
+    if want(3):
+        say("phase 3 kernel vs plain version on the card:")
+        worst = phase_kernel_vs_plain(device)
 
-    check(main_launches == cli_launches + serve_launches,
-          "launch count moved outside the main path")
-    check(epoch_kernel.LAUNCHES == 0, "the predict path launched the "
-          "epoch kernel")
-    times, n = phase_times(device)
-    for stats_only, t in times.items():
-        mode = "stats_only" if stats_only else "full output"
-        say(f"phase 6 times ({smi}), SDSS width, {n} spectra, {mode}: "
-            f"kernel {t['kernel']!r} ms ({n / t['kernel'] * 1e3:.0f} "
-            f"spectra/s), plain {t['plain']!r} ms "
-            f"({n / t['plain'] * 1e3:.0f} spectra/s)")
+    if want(4, 5):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+            params, mu = seeded_params(grid, torch.device("cpu"))
+            ckpt, data_dir, catalog, names, raw = write_survey(
+                root, params.to(device), mu.to(device), grid, 2048)
+            zero_counts()  # the main path's launches are counted from here
+            cli_launches, timing, n_sample = phase_cli(
+                root, ckpt, data_dir, catalog, names, grid)
+            say(f"phase 4 CLI predict: {timing['n']} spectra, read "
+                f"{timing['read_s']:.3f} s, device "
+                f"{timing['predict_s']:.3f} s, write "
+                f"{timing['write_s']:.3f} s; {cli_launches} launch(es); "
+                f"{n_sample} spectra match the CPU plain path")
+            serve_launches, latencies, pred, responses = phase_serving(
+                ckpt, raw)
+            main_launches = infer_kernel.LAUNCHES  # ... to here
+            check_responses(pred, responses, raw)
+            say("phase 5 serving: /healthz engine fused; " + ", ".join(
+                f"{n} spectra {dt * 1e3:.1f} ms" for n, dt in latencies)
+                + f" (HTTP, host clock); {serve_launches} launch(es); "
+                "responses equal the direct call")
+        check(main_launches == cli_launches + serve_launches,
+              "launch count moved outside the main path")
+        check(epoch_kernel.LAUNCHES == 0 and fused_step.LAUNCHES == 0,
+              "the predict path launched a training kernel")
+    if want(6):
+        times, n_pred = phase_times(device)
+        for stats_only, t in times.items():
+            mode = "stats_only" if stats_only else "full output"
+            say(f"phase 6 times ({smi}), SDSS width, {n_pred} spectra, "
+                f"{mode}: kernel {t['kernel']!r} ms "
+                f"({n_pred / t['kernel'] * 1e3:.0f} spectra/s), plain "
+                f"{t['plain']!r} ms ({n_pred / t['plain'] * 1e3:.0f} "
+                "spectra/s)")
 
-    # 7. epoch kernel against plain version
-    say("phase 7 epoch kernel vs plain version on the card:")
-    train_worst = phase_epoch_vs_plain(device)
+    if want(7):
+        say("phase 7 epoch kernel vs plain version on the card:")
+        train_worst = phase_epoch_vs_plain(device)
 
-    # 8. training main path
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
-        t0 = time.perf_counter()
-        train_launches, run_k, run_p, rel = phase_train_cli(root, grid)
-        say(f"phase 8 CLI train: {run_k['n']} spectra, batch 500, "
-            f"{len(run_k['history'])} epochs; read {run_k['read_s']:.3f} s, "
-            f"train {run_k['train_s']:.3f} s (kernel) / "
-            f"{run_p['train_s']:.3f} s (plain); {train_launches} epoch-"
-            f"kernel call(s); losses {[round(x, 4) for x in run_k['history']]}"
-            f" match the plain engine to {rel:.2e}; checkpoints, "
-            "metrics.jsonl and model_parameters.npz written; --type predict "
-            "from the trained model ran the prediction kernel; phase "
-            f"{time.perf_counter() - t0:.1f} s")
+    if want(8):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+            t0 = time.perf_counter()
+            zero_counts()
+            train_launches, run_k, run_p, rel = phase_train_cli(root, grid)
+            check(fused_step.LAUNCHES == 0,
+                  "the training CLI launched the step kernel")
+            say(f"phase 8 CLI train: {run_k['n']} spectra, batch 500, "
+                f"{len(run_k['history'])} epochs; read "
+                f"{run_k['read_s']:.3f} s, train {run_k['train_s']:.3f} s "
+                f"(kernel) / {run_p['train_s']:.3f} s (plain); "
+                f"{train_launches} epoch-kernel call(s); losses "
+                f"{[round(x, 4) for x in run_k['history']]} match the plain "
+                f"engine to {rel:.2e}; checkpoints, metrics.jsonl and "
+                "model_parameters.npz written; --type predict from the "
+                "trained model ran the prediction kernel; phase "
+                f"{time.perf_counter() - t0:.1f} s")
 
-    # 9. training times
-    ttimes, tn, n_batches, tb = phase_train_times(device)
-    for mxu, t in ttimes.items():
-        say(f"phase 9 times ({smi}), one training epoch, SDSS width, {tn} "
-            f"spectra, batch 500 ({n_batches} batches, tile {tb}), derived "
-            f"layout, {'bf16' if mxu else 'f32'} operands: kernel "
-            f"{t['kernel']!r} ms ({tn / t['kernel'] * 1e3:.0f} spectra/s), "
-            f"plain {t['plain']!r} ms ({tn / t['plain'] * 1e3:.0f} "
-            f"spectra/s); kernel against plain: params max_abs_err="
-            f"{t['max_abs_err']!r}; {t['detail']}")
-        train_worst = max(train_worst, t["max_abs_err"])
-    say(json.dumps({"kernels": [{
-        "name": "predict_kernel",
-        "route": "cuda",
-        "source": "qfa_tpu_torch/csrc/predict.cu",
-        "replaces": "qfa_tpu/ops/infer_kernel.py:90",
-        "launches": main_launches,
-        "max_abs_err": worst,
-        "ms": times[False]["kernel"],
-        "plain_ms": times[False]["plain"],
-    }, {
-        "name": "epoch_kernel",
-        "route": "cuda",
-        "source": "qfa_tpu_torch/csrc/epoch.cu",
-        "replaces": "qfa_tpu/ops/epoch_kernel.py:237",
-        "launches": train_launches,
-        "max_abs_err": train_worst,
-        "ms": ttimes[True]["kernel"],
-        "plain_ms": ttimes[True]["plain"],
-    }]}))
+    if want(9):
+        ttimes, tn, n_batches, tb = phase_train_times(device)
+        for mxu, t in ttimes.items():
+            say(f"phase 9 times ({smi}), one training epoch, SDSS width, "
+                f"{tn} spectra, batch 500 ({n_batches} batches, tile {tb}), "
+                f"derived layout, {'bf16' if mxu else 'f32'} operands: "
+                f"kernel {t['kernel']!r} ms ({tn / t['kernel'] * 1e3:.0f} "
+                f"spectra/s), plain {t['plain']!r} ms "
+                f"({tn / t['plain'] * 1e3:.0f} spectra/s); kernel against "
+                f"plain: params max_abs_err={t['max_abs_err']!r}; "
+                f"{t['detail']}")
+            train_worst = max(train_worst, t["max_abs_err"]) if want(7) \
+                else t["max_abs_err"]
+
+    if want(10):
+        say("phase 10 step kernel vs plain version on the card:")
+        step_worst = phase_step_vs_plain(device)
+
+    if want(11, 12):
+        problem = streaming_problem(device)
+    if want(11):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as root:
+            st = phase_streaming(root, problem, device)
+        step_launches = st["launches"]
+        say(f"phase 11 fit_streaming: {problem[1].size} SDSS spectra in host "
+            f"RAM, batch 500 ({st['n_batches']} steps, the last with "
+            f"{problem[1].size - 500 * (st['n_batches'] - 1)} real rows), "
+            f"{len(st['hk'])} epochs, validation on {problem[2].size}; "
+            f"{step_launches} step-kernel launches, no epoch or predict "
+            f"kernel; losses {st['hk']!r} (kernel) match the plain step "
+            f"{st['hp']!r} to {st['rel']:.2e}; autograd step, one epoch: "
+            f"{st['ha']!r}; wall {st['wall_k']:.3f} s (kernel, with "
+            f"validation and checkpoints) / {st['wall_p']:.3f} s (plain) / "
+            f"{st['wall_a']:.3f} s (autograd, 1 epoch); checkpoints "
+            "written every epoch")
+
+    if want(12):
+        t12, step_b = phase_step_times(device, problem)
+        n_stream = t12["n"]
+        busy = "not measured" if t12["busy"] is None else \
+            f"{t12['busy']!r}"
+        h2d = "not measured" if t12["h2d_s"] is None else \
+            f"{t12['h2d_s']!r} s"
+        say(f"phase 12 times ({smi}), SDSS width, batch 500, CUDA events "
+            f"(median): step kernel {t12['kernel']!r} ms, plain version "
+            f"{t12['plain']!r} ms, autograd loss_and_grads "
+            f"{t12['autograd']!r} ms, whole fused step function (kernel, "
+            f"normalization, Adam, clip, guard) {t12['step function']!r} "
+            "ms (it and the autograd step ran once with no host sync "
+            "inside, set_sync_debug_mode error); "
+            f"one streaming epoch of {n_stream} spectra on the step kernel: "
+            f"wall {t12['epoch_wall_s']!r} s "
+            f"({n_stream / t12['epoch_wall_s']:.0f} "
+            f"spectra/s), H2D copy {h2d}, device busy share {busy} "
+            "(torch.profiler, profiled epoch)")
+        stages = "not measured" if t12["stages_us"] is None else ", ".join(
+            f"{k} {v:.2f} us" for k, v in t12["stages_us"].items())
+        say(f"  step kernel device time per call by stage (torch.profiler, "
+            f"{smi}): {stages}")
+
+    if only:
+        say(f"partial run of phases 1, 2 and {sorted(only)}: no kernels "
+            "line, no result")
+        return 0
+    b_pred, b_epoch, b_step = bounds(grid, n_pred, tn, n_batches, tb, step_b)
+
+    def entry(name, src, replaces, launches, err, ms, plain_ms, bnd):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+    say(json.dumps({"kernels": [
+        entry("predict_kernel", "qfa_tpu_torch/csrc/predict.cu",
+              "qfa_tpu/ops/infer_kernel.py:90", main_launches, worst,
+              times[False]["kernel"], times[False]["plain"], b_pred),
+        entry("epoch_kernel", "qfa_tpu_torch/csrc/epoch.cu",
+              "qfa_tpu/ops/epoch_kernel.py:237", train_launches, train_worst,
+              ttimes[True]["kernel"], ttimes[True]["plain"], b_epoch),
+        entry("step_kernel", "qfa_tpu_torch/csrc/step.cu",
+              "qfa_tpu/ops/fused_step.py:155", step_launches, step_worst,
+              t12["kernel"], t12["plain"], b_step),
+    ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

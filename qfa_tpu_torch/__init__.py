@@ -1,9 +1,12 @@
 """PyTorch and CUDA port of qfa_tpu (Quasar Factor Analysis) for NVIDIA Hopper.
 
-The prediction and serving path: the plain batched torch likelihood and
-posterior (``models.qfa``), the fused prediction kernel written in CUDA
-C++ for ``sm_90a`` with its plain torch version (``ops.infer_kernel``),
-the predict CLI (``cli``) and the HTTP server (``serve``). Imports
+The plain batched torch likelihood and posterior (``models.qfa``); three
+kernels written in CUDA C++ for ``sm_90a``, each beside its plain torch
+version: prediction (``ops.infer_kernel``), whole training epochs
+(``ops.epoch_kernel``) and one batch's loss and gradients
+(``ops.fused_step``); the trainers (``train``: ``fit_fused`` on the epoch
+kernel, ``fit_streaming`` from host RAM on the step kernel, ``fit`` by
+autograd); the CLI (``cli``) and the HTTP server (``serve``). Imports
 neither ``jax`` nor ``qfa_tpu``; the JAX package is the reference the
 tests hold it against.
 """

@@ -13,7 +13,7 @@ import torch
 
 Tensor = torch.Tensor
 
-__all__ = ["SpectraBatch"]
+__all__ = ["SpectraBatch", "pad_batch"]
 
 
 class SpectraBatch(NamedTuple):
@@ -40,3 +40,18 @@ class SpectraBatch(NamedTuple):
     @property
     def nb(self) -> int:
         return self.zabs.shape[-1]
+
+
+def pad_batch(batch: SpectraBatch, target: int) -> SpectraBatch:
+    """Pad a batch with all-masked zero-weight rows up to ``target`` rows."""
+    b = batch.batch_size
+    if b == target:
+        return batch
+    if b > target:
+        raise ValueError(f"batch of {b} rows cannot be padded down to {target}")
+    extra = target - b
+
+    def pad(x: Tensor) -> Tensor:
+        return torch.cat([x, x.new_zeros((extra,) + tuple(x.shape[1:]))])
+
+    return SpectraBatch(*(pad(x) for x in batch))

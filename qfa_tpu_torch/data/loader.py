@@ -8,7 +8,10 @@ sanitized to 0, so the kernels can derive the mask as ``error > 0``.
 The training half selects spectra from a catalog (snr / z / num_mask
 cuts, sampling with replacement when too few survive), estimates the mean
 continuum mu and computes the residual field ``delta = flux - mu A`` once
-for the whole dataset, on the training device. Same semantics as
+for the whole dataset, on the training device, with the epoch's batch
+indices (:func:`batch_indices`, :func:`epoch_indices`, drawn from a
+``torch.Generator`` or given as a permutation) and
+:meth:`ResidualDataset.gather`. Same semantics as
 ``qfa_tpu.data.loader``; catalogs are read with the ``csv`` module (no
 pandas). The C++ npz reader is not ported yet.
 """
@@ -26,6 +29,7 @@ import torch
 
 from ..physics.smoothing import smooth_curve
 from ..physics.tau import tau_total
+from .batch import SpectraBatch
 from .grid import WavelengthGrid
 
 Tensor = torch.Tensor
@@ -44,6 +48,9 @@ __all__ = [
     "as_f32",
     "bf16_planes",
     "make_residuals",
+    "batch_indices",
+    "EpochIndices",
+    "epoch_indices",
 ]
 
 MISSING = -999.0
@@ -352,6 +359,26 @@ class ResidualDataset(NamedTuple):
     def size(self) -> int:
         return self.delta.shape[0]
 
+    def gather(self, idx, weight=None) -> SpectraBatch:
+        """Assemble a batch by index gather on the dataset's device.
+
+        ``weight`` (optional, (B,)) marks padding rows with 0: the tail
+        batch of an epoch duplicates row 0 on its pad entries, which must
+        contribute nothing. bfloat16-stored planes are cast to float32
+        (:func:`as_f32`). Needs the mask plane.
+        """
+        dev = self.delta.device
+        idx = torch.as_tensor(idx, dtype=torch.long, device=dev)
+        return SpectraBatch(
+            delta=as_f32(self.delta[idx]),
+            error=as_f32(self.error[idx]),
+            zabs=as_f32(self.zabs[idx]),
+            mask=self.mask[idx],
+            weight=torch.ones(idx.shape, dtype=torch.float32, device=dev)
+            if weight is None
+            else torch.as_tensor(weight, dtype=torch.float32, device=dev),
+        )
+
 
 def as_f32(x: Tensor | None) -> Tensor | None:
     """Promote bfloat16-stored planes back to float32 (no-op otherwise)."""
@@ -397,3 +424,62 @@ def make_residuals(
 
     return ResidualDataset(delta=put(delta), error=put(dataset.error),
                            zabs=put(zabs), mask=put(mask))
+
+
+def _permutation(generator: torch.Generator | None, n: int, perm) -> Tensor:
+    """``perm`` as an int64 CPU tensor (checked to be a permutation of
+    ``range(n)``), or a draw from ``generator``."""
+    if perm is None:
+        if generator is None:
+            raise ValueError("pass a torch.Generator or a permutation")
+        return torch.randperm(n, generator=generator)
+    perm = torch.tensor(np.asarray(perm), dtype=torch.long).reshape(-1)
+    if perm.numel() != n or not torch.equal(torch.sort(perm).values,
+                                            torch.arange(n)):
+        raise ValueError(f"perm is not a permutation of range({n})")
+    return perm
+
+
+def batch_indices(
+    generator: torch.Generator | None,
+    n: int,
+    batch_size: int,
+    *,
+    drop_remainder: bool = True,
+    perm=None,
+) -> Tensor:
+    """Shuffled epoch index matrix of shape (n_batches, batch_size).
+
+    The rows come from ``torch.randperm(n, generator=generator)``, or from
+    ``perm`` (a permutation of ``range(n)`` drawn elsewhere, e.g. the JAX
+    package's). The tail that does not fill a batch is dropped; use
+    :func:`epoch_indices` to train it too.
+    """
+    p = _permutation(generator, n, perm)
+    n_batches = n // batch_size
+    if not drop_remainder and n % batch_size:
+        raise NotImplementedError("use epoch_indices for tail-batch epochs")
+    return p[: n_batches * batch_size].reshape(n_batches, batch_size)
+
+
+class EpochIndices(NamedTuple):
+    """Shuffled epoch indices covering every spectrum: the tail batch is
+    padded to the batch size with weight-0 entries that duplicate row 0."""
+
+    idx: Tensor  #: (n_batches, batch_size) int64 row indices.
+    weight: Tensor  #: (n_batches, batch_size) float32, 0 on pad entries.
+
+
+def epoch_indices(
+    generator: torch.Generator | None, n: int, batch_size: int, *, perm=None
+) -> EpochIndices:
+    """Shuffled full-coverage epoch indices (see :class:`EpochIndices`);
+    the permutation as in :func:`batch_indices`."""
+    p = _permutation(generator, n, perm)
+    n_batches = -(-n // batch_size)
+    pad = n_batches * batch_size - n
+    idx = torch.cat([p, torch.zeros((pad,), dtype=p.dtype)])
+    wt = torch.cat([torch.ones((n,), dtype=torch.float32),
+                    torch.zeros((pad,), dtype=torch.float32)])
+    return EpochIndices(idx=idx.reshape(n_batches, batch_size),
+                        weight=wt.reshape(n_batches, batch_size))

@@ -11,8 +11,9 @@ Forward half of ``qfa_tpu.models.qfa``:
 This is the reference the CUDA prediction kernel (``ops.infer_kernel``)
 is held against, and the path the CLI and server take off the GPU. The
 training loss (:func:`mean_nll`) and its gradients by ``torch.autograd``
-(:func:`loss_and_grads`) serve held-out validation and are the
-independent check of the epoch kernel's analytic backward.
+(:func:`loss_and_grads`, :func:`summed_stats`) serve held-out validation
+and the autograd training step, and are the independent check of the
+epoch and step kernels' analytic backward.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ __all__ = [
     "grad_counts",
     "normalize_with_counts",
     "normalize_grads",
+    "summed_stats",
     "make_delta",
     "predict",
 ]
@@ -165,6 +167,29 @@ def loss_and_grads(
     """
     from .params import PARAM_NAMES
 
+    total, n_real, grads, counts = summed_stats(params, batch, options)
+    n_real = torch.clamp(n_real, min=1.0)
+    if reference_norm:
+        grads = normalize_with_counts(grads, counts)
+    else:
+        grads = QFAParams(*(getattr(grads, k).detach() / n_real
+                            for k in PARAM_NAMES))
+    return total / n_real, grads.requires_grad_(False)
+
+
+def summed_stats(
+    params: QFAParams,
+    batch: SpectraBatch,
+    options: ModelOptions = ModelOptions(),
+) -> tuple[Tensor, Tensor, QFAParams, "GradCounts"]:
+    """``(nll_sum, n_real, grads_sum, counts)`` of one batch: the weighted
+    NLL sum, the sum of the weights, the gradients of the NLL sum by
+    ``torch.autograd`` and :func:`grad_counts`, all plain sums with no
+    normalization. The contract of the step kernel
+    (``ops.fused_step.fused_loss_grads``) and the independent check of its
+    analytic backward."""
+    from .params import PARAM_NAMES
+
     # a fresh module: its nn.Parameters are the leaves differentiated
     leaf = QFAParams(**{k: getattr(params, k).detach().clone()
                         for k in PARAM_NAMES})
@@ -174,14 +199,8 @@ def loss_and_grads(
         total = torch.sum(per * w)
         grads = torch.autograd.grad(
             total, [getattr(leaf, k) for k in PARAM_NAMES])
-    grads = QFAParams(*(g.detach() for g in grads))
-    n_real = torch.clamp(torch.sum(w), min=1.0)
-    if reference_norm:
-        grads = normalize_grads(grads, batch)
-    else:
-        grads = QFAParams(*(getattr(grads, k).detach() / n_real
-                            for k in PARAM_NAMES))
-    return total.detach() / n_real, grads.requires_grad_(False)
+    grads = QFAParams(*(g.detach() for g in grads)).requires_grad_(False)
+    return total.detach(), torch.sum(w), grads, grad_counts(batch)
 
 
 class GradCounts(NamedTuple):

@@ -81,6 +81,21 @@ SIGNATURES = {
         ],
         ctypes.c_int,
     ),
+    "qfa_step_f32": (
+        [
+            _P, _P, _P, _I,  # delta, error, zabs, zabs_ld
+            _P, _P,  # mask, weight
+            _P, _P, _P,  # F, psi, omega
+            _P, _P, _P,  # tau0, c0, beta (device scalars)
+            _F, _F, _F,  # law_a, law_b, law_c
+            _I, _I, _I, _I,  # batch_rows, npix, nb, nh
+            _P, _P, _P, _P, _P,  # S, alpha, rowstat, partials, srows
+            # (scratch)
+            _P, _P, _P, _P, _P,  # gF, gpsi, gomega, counts, out
+            _I, _I, _P,  # n_chunks, device, stream
+        ],
+        ctypes.c_int,
+    ),
     "qfa_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

@@ -21,10 +21,20 @@ from qfa_tpu.ops.fused_step import TAU_LAW_ABC as JAX_TAU_LAW_ABC
 from qfa_tpu_torch.cli import main as port_main
 from qfa_tpu_torch.data.loader import ResidualDataset
 from qfa_tpu_torch.models.params import random_init
-from qfa_tpu_torch.ops import _build, common, epoch_kernel
+from qfa_tpu_torch.data.batch import SpectraBatch
+from qfa_tpu_torch.data.streaming import HostResiduals, stream_batches
+from qfa_tpu_torch.ops import _build, common, epoch_kernel, fused_step
 from qfa_tpu_torch.ops import infer_kernel
 from qfa_tpu_torch.serve import QFAPredictor
-from qfa_tpu_torch.train import TrainConfig, adam, fit_fused
+from qfa_tpu_torch.train import (
+    TrainConfig,
+    TrainState,
+    adam,
+    fit,
+    fit_fused,
+    fit_streaming,
+    make_fused_step_fn,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -47,7 +57,9 @@ def test_port_imports_neither_jax_nor_qfa_tpu():
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split(" ", 1)
     assert bad.strip() == "[]"
-    assert int(count) >= 20  # every module of the slice was imported
+    # every module of the slices was imported (37 since the streaming,
+    # synthetic and step-kernel modules)
+    assert int(count) >= 37
 
 
 def test_chip_smoke_imports_no_jax():
@@ -238,3 +250,55 @@ def test_build_writes_library_once_per_source_hash(build_env, monkeypatch):
     assert _build.build_library() == lib  # cached by content
     (build_env / "csrc" / "k.cu").write_text("// changed\n")
     assert _build.build_library() != lib  # a new source, a new build
+
+
+def _tiny_stream():
+    params = random_init(30, 10, 2, generator=torch.Generator().manual_seed(0))
+    x = np.full((8, 30), 0.1, np.float32)
+    host = HostResiduals(delta=x, error=x, zabs=x[:, :10].copy(),
+                         mask=np.ones_like(x))
+    return params, host
+
+
+def test_streaming_defaults_to_cuda(no_gpu):
+    """fit_streaming and stream_batches ask for the GPU by default and
+    raise at the call where there is none."""
+    params, host = _tiny_stream()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stream_batches(host, 4, np.random.default_rng(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit_streaming(params, host, np.ones(30), TrainConfig(n_epochs=1,
+                                                             batch_size=4))
+
+
+def test_step_kernel_cpu_calls_are_not_launches():
+    """The step kernel's wrapper and the fused step function on CPU
+    tensors take the plain version and count no launch; other devices
+    raise; multi-device options raise naming A10."""
+    params, host = _tiny_stream()
+    x = torch.full((3, 30), 0.1)
+    batch = SpectraBatch(delta=x, error=x, zabs=x[:, :10],
+                         mask=torch.ones_like(x), weight=torch.ones(3))
+    out = fused_step.fused_loss_grads(params, batch)
+    assert out.grads.F.shape == (30, 2) and fused_step.LAUNCHES == 0
+    st, loss = make_fused_step_fn(TrainConfig())(
+        TrainState(params, adam.init(params)), batch)
+    assert torch.isfinite(loss) and fused_step.LAUNCHES == 0
+    meta = torch.empty((3, 30), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fused_step.fused_loss_grads(params, batch._replace(delta=meta))
+    with pytest.raises(NotImplementedError, match="A10"):
+        fit_streaming(params, host, np.ones(30), TrainConfig(n_epochs=1),
+                      sharding=object(), device="cpu")
+    data = ResidualDataset(delta=x, error=x, zabs=x[:, :10], mask=None)
+    with pytest.raises(NotImplementedError, match="A10"):
+        fit(params, data, np.ones(30), TrainConfig(n_epochs=1), mesh=object())
+
+
+def test_step_kernel_source_and_signature():
+    assert (_build.CSRC / "step.cu").is_file()
+    argtypes, restype = _build.SIGNATURES["qfa_step_f32"]
+    assert len(argtypes) == 32 and restype is not None
+    src = (_build.CSRC / "step.cu").read_text()
+    assert "int qfa_step_f32(" in src and '#include "smallchol.cuh"' in src
+    assert "atomicAdd" not in src  # deterministic: fixed-order sums only

@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Runs the port's prediction and serving path and its training path once on
-the card, at the full width of the SDSS model the repository ships (Npix
-1913, Nb 720, Nh 8), with parameters and spectra made from a seed:
+Runs the port's prediction and serving path, its training paths and its
+measurement path once on the card, at the full width of the SDSS model the
+repository ships (Npix 1913, Nb 720, Nh 8), with parameters and spectra
+made from a seed:
 
 1. device: requires CUDA; prints the card's name and power limit
    (``nvidia-smi``); turns TF32 off for matmuls and cuDNN, so the plain
@@ -26,9 +27,11 @@ the card, at the full width of the SDSS model the repository ships (Npix
    epochs, derived layout), bf16 operands off and on; 3 epochs in one
    call against 3 chained calls, and inert padding rows, both bitwise;
 8. training main path: ``cli.main(["--type", "train", ..., "--device",
-   "cuda"])`` on 2048 spectra written to disk, the same run on the plain
-   version (``TRAIN.ENGINE xla``) for comparison, then ``--type predict``
-   from the trained model through the prediction kernel;
+   "cuda"])`` on 2048 spectra written to disk, held against
+   ``fit_fused(plain=True)`` called directly on the same loaded data and
+   seed; the CLI once more with ``TRAIN.ENGINE xla`` (``train.fit``, no
+   epoch kernel); then ``--type predict`` from the trained model through
+   the prediction kernel;
 9. times of one training epoch of 65536 spectra, kernel and plain, and
    the two epochs' outputs held against each other as in phase 7;
 10. the step kernel against its plain version on the same CUDA tensors:
@@ -43,7 +46,18 @@ the card, at the full width of the SDSS model the repository ships (Npix
 12. times: one step at batch 500 (kernel, plain version, autograd
     ``loss_and_grads``), the whole fused step function, and one streaming
     epoch of 16384 spectra (wall, H2D copy and device busy share by
-    ``torch.profiler``, spectra/s).
+    ``torch.profiler``, spectra/s);
+13. the card's calibration: the alu_chain kernel against its plain
+    version for each op (fma, exp, log, div) at n_iters 0, 1 and 3 over the
+    (256, 1024) tile, one launch of each at the fma calibration's larger
+    count, then ``calibrate_peaks`` and ``calibrate_alu``, each rate beside
+    its published counterpart;
+14. the contraction-depth probe: the kdepth kernel against its plain
+    version for all 8 variants at grid 3 and for pair36+8 at the probe's
+    grid 4096 (beside a float64 witness), its times (kernel at the full
+    and an eighth of the grid, plain, one ``torch.addmm`` per step as the
+    library yardstick, replayed from a CUDA graph), then ``qfa_tpu_torch.tools.mxu_kdepth.main`` at
+    its defaults into a temporary directory.
 
 Prints a JSON line of kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -55,7 +69,6 @@ import json
 import os
 import re
 import statistics
-import subprocess
 import sys
 import tempfile
 import threading
@@ -133,8 +146,9 @@ EPOCH_LIMITS = {
                           "scalar params": None, "moments": 1.8e-2,
                           "scalar moments": None},
 }
-#: training CLI: per-epoch losses of the kernel engine against the plain
-#: engine, both with bf16 operands (the CLI default), over 4 epochs; and
+#: training CLI: per-epoch losses of the kernel engine against
+#: fit_fused(plain=True) on the same data and seed, both with bf16
+#: operands (the CLI default), over 4 epochs; and
 #: fit_streaming on the step kernel against the plain step (phase 11)
 CLI_LOSS_RTOL = 1e-5
 #: step kernel against its plain version (phase 10): the CPU parity
@@ -159,6 +173,33 @@ TAU_LAWS = ("becker", "fg", "kamble", "mock")
 #: bytes/s and fp32 FLOP/s outside the tensor cores, for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+#: ... and dense bf16 FLOP/s on the tensor cores, for the calibration's
+#: shares (phase 13)
+BF16_FLOP_PER_S = 989e12
+#: alu_chain kernel against its plain version (phase 13), relative. fma:
+#: nvcc contracts x * a + b into one FFMA and the plain version rounds
+#: each rep once as well, so they should agree bitwise; one rep moves the
+#: output by 2.2e-7 to 3.2e-7 of itself, so 1e-7 checks the kernel's
+#: count of iterations and of reps in each. exp, log and div contract to
+#: their fixed points within 32 reps, so their 1e-6 checks the op, not the
+#: count. At n_iters 0 every op must agree exactly (the scaled starts).
+ALU_RTOL = {"fma": 1e-7, "exp": 1e-6, "log": 1e-6, "div": 1e-6}
+#: the calibration's deltas must be at least this long (CUDA events)
+ALU_MIN_DELTA_S = 2e-3
+#: contraction probe against its plain version (phase 14), as max|kernel -
+#: plain| / max|plain|: at grid 3 the plain float32 result lies within
+#: 5e-7 of a float64 reference, so 1e-5. At the probe's grid the float32
+#: sum of 4096 nearly equal steps carries its rounding on: the witness
+#: (the plain float32 version against the same steps in float64, on the
+#: card) read 4.89e-05 on an H100 (PERF.md section 6), so a float32 kernel
+#: that added its steps in another order could sit that far from the plain
+#: version; the control (the plain version with its last step left out)
+#: moves the output by 1/4096 = 2.44e-4. The limit lies between; the phase
+#: prints all three readings and checks that the control exceeds it.
+KDEPTH_REL = 1e-5
+KDEPTH_FULL_REL = 1e-4
+#: the probe's grid (tools/mxu_kdepth.py's default)
+KDEPTH_GRID = 4096
 PARAM_NAMES = ("F", "Psi", "omega", "tau0", "c0", "beta")
 NPZ_KEYS = {"ll": "ll", "hmean": "hmean", "hcov": "hcov",
             "continuum": "cont", "continuum_std": "uncertainty"}
@@ -427,6 +468,29 @@ def check_responses(pred, responses, raw):
             np.testing.assert_array_equal(got, val, err_msg=f"HTTP {key}")
 
 
+def kernel_modules():
+    """The wrapper modules of the port's kernels, each with LAUNCHES."""
+    from qfa_tpu_torch.ops import (
+        alu_chain,
+        epoch_kernel,
+        fused_step,
+        infer_kernel,
+        kdepth,
+    )
+
+    return infer_kernel, epoch_kernel, fused_step, alu_chain, kdepth
+
+
+def zero_counts():
+    for mod in kernel_modules():
+        mod.LAUNCHES = 0
+
+
+def other_counts(mod):
+    """Launches of every kernel but ``mod``'s."""
+    return sum(m.LAUNCHES for m in kernel_modules() if m is not mod)
+
+
 def time_cuda(fn, reps):
     """Median ms of fn() over reps runs, by CUDA events."""
     times = []
@@ -673,11 +737,15 @@ def write_training_survey(root, grid, n):
 
 def phase_train_cli(root, grid, n=2048, epochs=4):
     """The training main path through the CLI on the kernel, counted from
-    zero; then the same run on the plain version, and a prediction from
-    the trained model."""
+    zero; then ``fit_fused(plain=True)`` called directly on the same loaded
+    data and seed, the CLI once more with ``TRAIN.ENGINE xla`` (the
+    per-step trainer ``train.fit``, no epoch kernel), and a prediction
+    from the trained model."""
     from qfa_tpu_torch import cli
-    from qfa_tpu_torch.models.params import load_npz
+    from qfa_tpu_torch.config import get_config
+    from qfa_tpu_torch.models.params import load_npz, random_init
     from qfa_tpu_torch.ops import epoch_kernel, infer_kernel
+    from qfa_tpu_torch.train import fit_fused
 
     catalog, data_dir, names = write_training_survey(root, grid, n)
     base = ["--type", "train", "--catalog", catalog, "--data_dir", data_dir,
@@ -715,16 +783,43 @@ def phase_train_cli(root, grid, n=2048, epochs=4):
           and all(bool(torch.isfinite(getattr(params, k)).all())
                   for k in PARAM_NAMES), "trained model has bad values")
 
-    out_p = os.path.join(root, "train_plain")
-    run_p = cli.main(base + ["--output_dir", out_p] + opts
+    # the kernel run against the plain version of the same engine, called
+    # directly on the data as the CLI loads it, from the same seed
+    cfg = get_config(cli.build_parser().parse_args(
+        base + ["--output_dir", os.path.join(root, "train_plain")] + opts))
+    dataset, mu_p, residuals, val = cli._load_training_data(
+        cfg, grid, torch.device("cuda"))
+    residuals, layout_kw = cli.resident_layout(dataset, residuals, grid,
+                                               torch.device("cuda"))
+    check(bool(layout_kw), "the direct run did not take the derived layout")
+    t0 = time.perf_counter()
+    _, hp = fit_fused(
+        random_init(grid.npix, grid.nb, NH,
+                    generator=torch.Generator().manual_seed(SEED)).cuda(),
+        residuals, mu_p, cli.train_config(cfg), seed=SEED, val_data=val,
+        plain=True, **layout_kw)
+    plain_s = time.perf_counter() - t0
+    check(epoch_kernel.LAUNCHES == launches,
+          "fit_fused(plain=True) launched the epoch kernel")
+    hk = np.asarray(run_k["history"])
+    rel = float(np.max(np.abs(hk - np.asarray(hp)) / np.abs(hp)))
+    check(rel <= CLI_LOSS_RTOL, f"CLI train losses of the kernel and of "
+          f"fit_fused(plain=True) differ by {rel:.3g}: {hk} vs {hp}")
+
+    # TRAIN.ENGINE xla: the per-step trainer train.fit, as in the JAX CLI
+    out_x = os.path.join(root, "train_fit")
+    run_x = cli.main(base + ["--output_dir", out_x] + opts
                      + ["TRAIN.ENGINE", "xla"])
     check(epoch_kernel.LAUNCHES == launches,
-          "the plain engine launched the epoch kernel")
-    check(run_p["engine"] == "plain", f"plain run engine {run_p['engine']}")
-    hk, hp = np.asarray(run_k["history"]), np.asarray(run_p["history"])
-    rel = float(np.max(np.abs(hk - hp) / np.abs(hp)))
-    check(rel <= CLI_LOSS_RTOL, f"CLI train losses of kernel and plain "
-          f"engine differ by {rel:.3g}: {hk} vs {hp}")
+          "TRAIN.ENGINE xla launched the epoch kernel")
+    check(run_x["engine"] == "fit", f"xla run engine {run_x['engine']}")
+    with open(os.path.join(out_x, "log.txt")) as f:
+        check("trainer engine: XLA trainer (train.fit" in f.read(),
+              "TRAIN.ENGINE xla did not log the fit engine")
+    with open(os.path.join(out_x, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    check(len(losses) == epochs and bool(np.isfinite(losses).all()),
+          f"TRAIN.ENGINE xla losses {losses}")
 
     pred_catalog = os.path.join(root, "train-predict-catalog.csv")
     with open(pred_catalog, "w") as f:
@@ -739,7 +834,7 @@ def phase_train_cli(root, grid, n=2048, epochs=4):
     with np.load(os.path.join(out_pred, "predict", names[0])) as r:
         check(all(bool(np.isfinite(r[k]).all()) for k in NPZ_KEYS.values()),
               "predictions from the trained model are not finite")
-    return launches, run_k, run_p, rel
+    return launches, run_k, run_x, rel, plain_s
 
 
 def phase_train_times(device, n=65536, batch=500, plain_reps=1, reps=3):
@@ -1100,6 +1195,188 @@ def phase_step_times(device, problem, reps=20):
     return out, batch
 
 
+def phase_alu(device, smi):
+    """B4: the alu_chain kernel against its plain version for each op at
+    n_iters 0, 1 and 3 over the (256, 1024) tile; one launch at the fma
+    calibration's larger count, kernel and plain; then the calibration
+    path (calibrate_peaks, calibrate_alu), its launches counted from
+    zero."""
+    from qfa_tpu_torch import calibrate
+    from qfa_tpu_torch.ops import alu_chain as ac
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    x = 0.5 + 0.5 * torch.rand(calibrate.ALU_SHAPE, generator=g,
+                               device=device)
+    worst = 0.0
+    for op in ac.OPS:
+        for n_iters in (0, 1, 3):
+            got = ac.alu_chain(x, n_iters, op)
+            want = ac.alu_chain_plain(x, n_iters, op)
+            torch.cuda.synchronize()
+            check(got.shape == x.shape and bool(torch.isfinite(got).all()),
+                  f"alu_chain {op} x{n_iters}: bad output")
+            diff = (got - want).abs()
+            rel = float((diff / want.abs()).max())
+            limit = ALU_RTOL[op] if n_iters else 0.0
+            check(rel <= limit, f"alu_chain {op} x{n_iters}: kernel and "
+                  f"plain version differ by {rel:.3g} (relative)")
+            worst = max(worst, float(diff.max()))
+            say(f"  alu_chain {op}, n_iters {n_iters}, (256, 1024): max rel "
+                f"err {rel:.2e} (limit {limit:g})")
+    i1, i2 = calibrate.ALU_ITERS["fma"]
+    ms = time_cuda(lambda: ac.alu_chain(x, i2, "fma"), 5)
+    plain_ms = time_cuda(lambda: ac.alu_chain_plain(x, i2, "fma"), 1)
+
+    # the calibration path's launches are counted from here ...
+    zero_counts()
+    t0 = time.perf_counter()
+    f32, bf16, read = calibrate.calibrate_peaks(device)
+    alu = calibrate.calibrate_alu(device)
+    launches = ac.LAUNCHES  # ... to here
+    check(launches >= 1, "calibrate_alu launched no alu_chain kernel")
+    check(other_counts(ac) == 0, "the calibration launched another kernel")
+    parts = [f"f32 {f32:.2f} TFLOP/s ({f32 * 1e12 / FP32_FLOP_PER_S:.1%} "
+             "of 67 published)",
+             f"bf16 {bf16:.1f} TFLOP/s ({bf16 * 1e12 / BF16_FLOP_PER_S:.1%} "
+             "of 989 dense)",
+             f"read {read:.1f} GB/s ({read * 1e9 / HBM_BYTES_PER_S:.1%} of "
+             "3350)"]
+    for op in ac.OPS:
+        rate = alu[op]
+        check(rate is not None and rate > 0, f"calibrate_alu {op}: no rate")
+        delta = calibrate.alu_op_count(op, *calibrate.ALU_ITERS[op],
+                                       x.numel()) / rate
+        check(delta >= ALU_MIN_DELTA_S, f"calibrate_alu {op}: delta "
+              f"{delta * 1e3:.3f} ms under {ALU_MIN_DELTA_S * 1e3:g} ms")
+        share = (f", {rate / FP32_FLOP_PER_S:.1%} of 67 TFLOP/s"
+                 if op == "fma" else ", no published rate")
+        parts.append(f"{op} {rate / 1e12:.4f} Top/s (delta "
+                     f"{delta * 1e3:.3f} ms{share})")
+    say(f"phase 13 calibration ({smi}): " + "; ".join(parts)
+        + f"; {launches} alu_chain launch(es); "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_ops = calibrate.alu_op_count("fma", 0, i2, x.numel())
+    return dict(launches=launches, worst=worst, ms=ms, plain_ms=plain_ms,
+                bound=bound(2 * nbytes(x), n_ops), i2=i2)
+
+
+def phase_kdepth(device, smi):
+    """B5: the contraction probe against its plain version, all variants
+    at grid 3 and pair36+8 at the probe's grid (with the float64 witness);
+    times of pair36+8 (kernel at the full and an eighth of the grid,
+    plain, and the torch.addmm yardstick); then the probe tool, its
+    launches counted from zero."""
+    from qfa_tpu_torch.ops import kdepth as kd
+    from qfa_tpu_torch.tools import mxu_kdepth
+
+    pool_l, pool_lt, r, r2 = mxu_kdepth.make_operands(1, device)
+    l, lt = pool_l[0], pool_lt[0]
+    worst = 0.0
+
+    def rel_err(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    for name, k1, k2, vpu_k2 in kd.VARIANTS:
+        kw = dict(k1=k1, k2=k2, vpu_k2=vpu_k2, grid=3)
+        got = kd.contraction_probe(l, lt, r, r2, **kw)
+        want = kd.contraction_probe_plain(l, lt, r, r2, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"probe {name}: not finite")
+        rel = rel_err(got, want)
+        check(rel <= KDEPTH_REL, f"probe {name}, grid 3: kernel and plain "
+              f"version differ by {rel:.3g} of max|out|")
+        worst = max(worst, float((got - want).abs().max()))
+        say(f"  probe {name}, grid 3: max|kernel - plain| / max|plain| = "
+            f"{rel:.2e} (limit {KDEPTH_REL:g})")
+    _, k1, k2, vpu_k2 = kd.VARIANTS[0]  # pair36+8
+    kw = dict(k1=k1, k2=k2, vpu_k2=vpu_k2, grid=KDEPTH_GRID)
+    got = kd.contraction_probe(l, lt, r, r2, **kw)
+    want = kd.contraction_probe_plain(l, lt, r, r2, **kw)
+    ref = kd.contraction_probe_plain(*(t.double() for t in (l, lt, r, r2)),
+                                     **kw)
+    control = rel_err(kd.contraction_probe_plain(
+        l, lt, r, r2, **dict(kw, grid=KDEPTH_GRID - 1)), want)
+    torch.cuda.synchronize()
+    rel, witness = rel_err(got, want), rel_err(want, ref)
+    check(rel <= KDEPTH_FULL_REL, f"probe pair36+8, grid {KDEPTH_GRID}: "
+          f"kernel and plain version differ by {rel:.3g} of max|out|")
+    check(control > KDEPTH_FULL_REL, f"probe control {control:.3g} inside "
+          f"the limit {KDEPTH_FULL_REL:g}")
+    worst = max(worst, float((got - want).abs().max()))
+    say(f"  probe pair36+8, grid {KDEPTH_GRID}: max|kernel - plain| / "
+        f"max|plain| = {rel:.2e} (limit {KDEPTH_FULL_REL:g}); witness "
+        f"plain float32 vs float64 {witness:.2e} (kernel vs float64 "
+        f"{rel_err(got, ref):.2e}); control, last step left out, "
+        f"{control:.2e}")
+
+    ms = time_cuda(lambda: kd.contraction_probe(l, lt, r, r2, **kw), 5)
+    ms_8th = time_cuda(lambda: kd.contraction_probe(
+        l, lt, r, r2, **dict(kw, grid=KDEPTH_GRID // 8)), 5)
+    check(ms >= 4 * ms_8th, f"probe time does not grow with the grid: "
+          f"{ms!r} ms at {KDEPTH_GRID} steps, {ms_8th!r} ms at "
+          f"{KDEPTH_GRID // 8}")
+    plain_ms = time_cuda(lambda: kd.contraction_probe_plain(l, lt, r, r2,
+                                                            **kw), 1)
+    # yardstick, never called by the port: one torch.addmm per step,
+    # o += s_j (L[:44]^T @ (w R[:44])) with w 0.5 on the 36 dw rows and
+    # 0.25 on the 8 du rows (TF32 off since phase 1)
+    lt44 = l[:44].T.contiguous()
+    rw = r[:44] * torch.cat([torch.full((36, 1), 0.5, device=device),
+                             torch.full((8, 1), 0.25, device=device)])
+    scales = [kd.step_scale(j) for j in range(KDEPTH_GRID)]
+    o = torch.zeros((kd.TB, kd.P), device=device)
+
+    def addmm_loop():
+        o.zero_()
+        for s_j in scales:
+            o.addmm_(lt44, rw, alpha=s_j)
+        return o
+
+    eager_ms = time_cuda(addmm_loop, 3)
+    # the loop captured once in a CUDA graph and replayed: cuBLAS's time
+    # per step, without the host's 4096 launches (eager_ms above)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        addmm_loop()  # warm-up on a side stream, as capture needs
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        addmm_loop()
+    library_ms = time_cuda(graph.replay, 3)
+    lib_rel = rel_err(o, want)
+
+    # the probe tool's launches are counted from here ...
+    zero_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kdepth_") as tmp:
+        record = mxu_kdepth.main(["--out", tmp])
+        check(os.path.isfile(os.path.join(tmp, mxu_kdepth.RECORD_NAME)),
+              "the probe wrote no record")
+    launches = kd.LAUNCHES  # ... to here
+    check(launches >= 1, "the probe launched no kdepth kernel")
+    check(other_counts(kd) == 0, "the probe launched another kernel")
+    check(record["grid"] == KDEPTH_GRID, "the probe's grid")
+    per = ", ".join(f"{k} {v['us_per_step']!r}"
+                    for k, v in record["variants"].items())
+    say(f"phase 14 probe ({smi}): us per step: {per}; "
+        f"k_scaling_128_over_8 {record['k_scaling_128_over_8']!r}, "
+        f"flat_in_k {record['flat_in_k']}; f32 peak "
+        f"{record['mxu_peak_tflops_f32']!r} TFLOP/s; pair36+8 at grid "
+        f"{KDEPTH_GRID}: kernel {ms!r} ms ({ms_8th!r} ms at an eighth of "
+        f"the grid), plain {plain_ms!r} ms, torch.addmm per step "
+        f"{library_ms!r} ms in a CUDA graph, {eager_ms!r} ms launched from "
+        f"the host (its result {lib_rel:.2e} of max|out| from the plain "
+        f"version); {launches} kdepth launches; "
+        f"{time.perf_counter() - t0:.1f} s")
+    # bound: the 44 rows of l and r the variant reads and the output once;
+    # 2 * TB * P * 44 operations per step
+    n_bytes = 4 * (44 * kd.TB + 44 * kd.P + kd.TB * kd.P)
+    return dict(launches=launches, worst=worst, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms,
+                bound=bound(n_bytes, 2 * kd.TB * kd.P * 44 * KDEPTH_GRID))
+
+
 def bound(n_bytes, flops):
     """(ms, "bytes" or "operations"): the larger of the bytes over the
     card's HBM rate and the fp32 operations over its fp32 peak."""
@@ -1154,16 +1431,13 @@ def main(argv=None):
     if not torch.cuda.is_available():
         say("chip_smoke: FAIL: torch.cuda.is_available() is False")
         return 1
+    from qfa_tpu_torch.calibrate import card_info
     from qfa_tpu_torch.data.grid import make_grid
     from qfa_tpu_torch.ops import _build, epoch_kernel, fused_step, infer_kernel
 
     device = torch.device("cuda")
     # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_info()["nvidia_smi"]
     kind = torch.cuda.get_device_name(0)
     say(smi)
     say(f"phase 1 device: {kind}; torch {torch.__version__}, CUDA "
@@ -1179,14 +1453,14 @@ def main(argv=None):
     _build.load_library()
     say(f"phase 2 build: {time.perf_counter() - t0:.3f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    kernel = "?"
     for line in _build.build_log().splitlines():
-        if "registers" in line or ("spill" in line
-                                   and " 0 bytes spill" not in line):
-            say(f"  {line.strip()}")
-
-    def zero_counts():
-        infer_kernel.LAUNCHES = epoch_kernel.LAUNCHES = 0
-        fused_step.LAUNCHES = 0
+        name = re.search(r"Compiling entry function '(\w+)'", line)
+        if name:
+            kernel = name[1]
+        elif "registers" in line or ("spill" in line
+                                     and " 0 bytes spill" not in line):
+            say(f"  {kernel}: {line.strip()}")
 
     grid = make_grid(**SDSS)
     if want(3):
@@ -1236,18 +1510,22 @@ def main(argv=None):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
             t0 = time.perf_counter()
             zero_counts()
-            train_launches, run_k, run_p, rel = phase_train_cli(root, grid)
+            train_launches, run_k, run_x, rel, plain_s = phase_train_cli(
+                root, grid)
             check(fused_step.LAUNCHES == 0,
                   "the training CLI launched the step kernel")
             say(f"phase 8 CLI train: {run_k['n']} spectra, batch 500, "
                 f"{len(run_k['history'])} epochs; read "
                 f"{run_k['read_s']:.3f} s, train {run_k['train_s']:.3f} s "
-                f"(kernel) / {run_p['train_s']:.3f} s (plain); "
-                f"{train_launches} epoch-kernel call(s); losses "
-                f"{[round(x, 4) for x in run_k['history']]} match the plain "
-                f"engine to {rel:.2e}; checkpoints, metrics.jsonl and "
-                "model_parameters.npz written; --type predict from the "
-                "trained model ran the prediction kernel; phase "
+                f"(kernel) / {plain_s:.3f} s (fit_fused(plain=True), "
+                f"direct); {train_launches} epoch-kernel call(s); losses "
+                f"{[round(x, 4) for x in run_k['history']]} match "
+                f"fit_fused(plain=True) to {rel:.2e}; checkpoints, "
+                "metrics.jsonl and model_parameters.npz written; TRAIN.ENGINE"
+                f" xla ran train.fit, no epoch kernel, train "
+                f"{run_x['train_s']:.3f} s, losses "
+                f"{[round(x, 4) for x in run_x['history']]}; --type predict "
+                "from the trained model ran the prediction kernel; phase "
                 f"{time.perf_counter() - t0:.1f} s")
 
     if want(9):
@@ -1310,17 +1588,27 @@ def main(argv=None):
         say(f"  step kernel device time per call by stage (torch.profiler, "
             f"{smi}): {stages}")
 
+    if want(13):
+        say("phase 13 alu_chain kernel vs plain version on the card:")
+        alu = phase_alu(device, smi)
+
+    if want(14):
+        say("phase 14 contraction probe kernel vs plain version on the card:")
+        kdp = phase_kdepth(device, smi)
+
     if only:
         say(f"partial run of phases 1, 2 and {sorted(only)}: no kernels "
             "line, no result")
         return 0
     b_pred, b_epoch, b_step = bounds(grid, n_pred, tn, n_batches, tb, step_b)
 
-    def entry(name, src, replaces, launches, err, ms, plain_ms, bnd):
+    def entry(name, src, replaces, launches, err, ms, plain_ms, bnd,
+              library_ms=None):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
 
     say(json.dumps({"kernels": [
         entry("predict_kernel", "qfa_tpu_torch/csrc/predict.cu",
@@ -1332,6 +1620,12 @@ def main(argv=None):
         entry("step_kernel", "qfa_tpu_torch/csrc/step.cu",
               "qfa_tpu/ops/fused_step.py:155", step_launches, step_worst,
               t12["kernel"], t12["plain"], b_step),
+        entry("alu_chain_kernel", "qfa_tpu_torch/csrc/alu_chain.cu",
+              "bench.py:410", alu["launches"], alu["worst"], alu["ms"],
+              alu["plain_ms"], alu["bound"]),
+        entry("kdepth_kernel", "qfa_tpu_torch/csrc/kdepth.cu",
+              "tools/mxu_kdepth.py:87", kdp["launches"], kdp["worst"],
+              kdp["ms"], kdp["plain_ms"], kdp["bound"], kdp["library_ms"]),
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

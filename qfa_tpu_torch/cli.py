@@ -3,9 +3,11 @@
 The flags, ``config.yaml``/``log.txt`` run directory and output files of
 ``qfa_tpu.cli``, plus ``--device`` (``RUNTIME.DEVICE``, default ``cuda``).
 When the device is a GPU and ``TRAIN.ENGINE`` is ``auto`` or ``pallas``,
-``--type train`` runs every epoch in the CUDA epoch kernel and ``--type
-predict`` in the CUDA prediction kernel; otherwise both run the same
-engines on the plain torch versions.
+``--type train`` runs every epoch in the CUDA epoch kernel
+(``train.fit_fused``) and ``--type predict`` in the CUDA prediction
+kernel. Otherwise, as in ``qfa_tpu.cli``, ``--type train`` runs the
+per-step trainer ``train.fit`` and ``--type predict`` the plain
+prediction path.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import time
 
 from .config import ConfigNode, get_config
 
-__all__ = ["build_parser", "main", "run_train", "run_predict"]
+__all__ = ["build_parser", "main", "resident_layout", "run_predict",
+           "run_train", "train_config"]
 
 
 def _str2bool(value: str) -> bool:
@@ -116,20 +119,58 @@ def _load_training_data(cfg: ConfigNode, grid, device):
     return dataset, mu, residuals, val_residuals
 
 
+def train_config(cfg: ConfigNode):
+    """The ``TrainConfig`` of a run's configuration."""
+    from .models.qfa import ModelOptions
+    from .train import TrainConfig
+
+    return TrainConfig(
+        n_epochs=cfg.TRAIN.NEPOCHS,
+        batch_size=cfg.DATA.BATCH_SIZE,
+        learning_rate=cfg.TRAIN.LEARNING_RATE,
+        weight_decay=cfg.TRAIN.WEIGHT_DECAY,
+        decay_alpha=cfg.TRAIN.DECAY_ALPHA,
+        decay_step=cfg.TRAIN.DECAY_STEP,
+        smooth_interval=cfg.TRAIN.SMOOTH_INTERVAL,
+        save_interval=cfg.TRAIN.SAVE_INTERVAL,
+        reference_norm=cfg.TRAIN.REFERENCE_NORM,
+        mxu_bf16=cfg.TRAIN.MXU_BF16,
+        bwd_wide=cfg.TRAIN.BWD_WIDE,
+        options=ModelOptions(tau_which=cfg.MODEL.TAU),
+    )
+
+
+def resident_layout(dataset, residuals, grid, device):
+    """The fused engine's production resident layout: when every masked
+    pixel carries error == 0, the engine derives the mask (error > 0) and
+    the absorber redshifts (the (N, 2) zq column and the loglam row).
+    Returns the residuals and ``fit_fused``'s layout keywords (empty when
+    the planes stay)."""
+    import numpy as np
+    import torch
+
+    from .ops.common import loglam_row, zq_column
+
+    if not bool(np.all((dataset.error > 0.0) == dataset.mask)):
+        return residuals, {}
+    residuals = residuals._replace(
+        zabs=zq_column(torch.as_tensor(dataset.zqso, device=device)),
+        mask=None)
+    return residuals, dict(derive_mask=True,
+                           loglam=loglam_row(grid.wav, device=device))
+
+
 def run_train(cfg: ConfigNode) -> dict:
     """Train on ``DATA.CATALOG``: resume from the newest full state in the
     run directory, else ``MODEL.RESUME``, else a random init from ``SEED``;
     write ``metrics.jsonl``, the checkpoints and ``model_parameters.npz``.
     Returns the spectrum count, the per-epoch loss history, the engine, and
     the wall seconds spent loading and training."""
-    import numpy as np
     import torch
 
     from .data.grid import make_grid
     from .models import load_npz, random_init, save_npz
-    from .models.qfa import ModelOptions
-    from .ops.common import loglam_row, zq_column
-    from .train import TrainConfig, fit_fused
+    from .train import fit, fit_fused
     from .train.checkpoint import latest_checkpoint, load_state
     from .utils.device import resolve_device
     from .utils.logging import MetricsWriter, make_logger, setup_run_dir
@@ -196,28 +237,20 @@ def run_train(cfg: ConfigNode) -> dict:
         logger.info("%d CUDA devices visible; training on %s only "
                     "(data-parallel training is ROADMAP A10)",
                     torch.cuda.device_count(), device)
+    # the JAX CLI's choice: the fused engine on the accelerator for
+    # TRAIN.ENGINE auto/pallas, else the per-step trainer train.fit
     use_kernel = cfg.TRAIN.ENGINE in ("auto", "pallas") and \
         device.type == "cuda"
     if use_kernel:
         logger.info("trainer engine: fused CUDA epoch kernel on %s", device)
     else:
-        logger.info("trainer engine: whole-epoch engine on the plain torch "
-                    "version, on %s", device)
-    train_cfg = TrainConfig(
-        n_epochs=cfg.TRAIN.NEPOCHS,
-        batch_size=cfg.DATA.BATCH_SIZE,
-        learning_rate=cfg.TRAIN.LEARNING_RATE,
-        weight_decay=cfg.TRAIN.WEIGHT_DECAY,
-        decay_alpha=cfg.TRAIN.DECAY_ALPHA,
-        decay_step=cfg.TRAIN.DECAY_STEP,
-        smooth_interval=cfg.TRAIN.SMOOTH_INTERVAL,
-        save_interval=cfg.TRAIN.SAVE_INTERVAL,
-        reference_norm=cfg.TRAIN.REFERENCE_NORM,
-        mxu_bf16=cfg.TRAIN.MXU_BF16,
-        bwd_wide=cfg.TRAIN.BWD_WIDE,
-        options=ModelOptions(tau_which=cfg.MODEL.TAU),
-    )
-    if cfg.TRAIN.MXU_BF16:
+        if cfg.TRAIN.ENGINE == "pallas":
+            logger.warning("TRAIN.ENGINE=pallas requested but %s is no CUDA "
+                           "device; falling back to the XLA trainer", device)
+        logger.info("trainer engine: XLA trainer (train.fit, per-step "
+                    "autograd) on %s", device)
+    train_cfg = train_config(cfg)
+    if cfg.TRAIN.MXU_BF16 and use_kernel:
         logger.info("mxu mode: bf16 operands on the six heavy products "
                     "(f32 accumulation)")
     if cfg.TRAIN.BF16_PLANES:
@@ -227,30 +260,29 @@ def run_train(cfg: ConfigNode) -> dict:
         logger.info("capacity mode: bf16-stored delta/error planes (half "
                     "the resident bytes; f32 arithmetic)")
     kwargs = {}
-    # production resident layout: when every masked pixel carries
-    # error == 0, the engine derives the mask (error > 0) and the absorber
-    # redshifts (the (N, 2) zq column and the loglam row)
-    if bool(np.all((dataset.error > 0.0) == dataset.mask)):
-        residuals = residuals._replace(
-            zabs=zq_column(torch.as_tensor(dataset.zqso, device=device)),
-            mask=None)
-        kwargs = dict(derive_mask=True,
-                      loglam=loglam_row(grid.wav, device=device))
-        logger.info("resident layout: derived mask + zq-column redshifts")
-    if cfg.TRAIN.EPOCHS_PER_LAUNCH > 1:
-        kwargs["epochs_per_launch"] = cfg.TRAIN.EPOCHS_PER_LAUNCH
-        logger.info("up to %d epochs per call of the epoch engine",
-                    cfg.TRAIN.EPOCHS_PER_LAUNCH)
+    if use_kernel:
+        residuals, kwargs = resident_layout(dataset, residuals, grid, device)
+        if kwargs:
+            logger.info("resident layout: derived mask + zq-column "
+                        "redshifts")
+        if cfg.TRAIN.EPOCHS_PER_LAUNCH > 1:
+            kwargs["epochs_per_launch"] = cfg.TRAIN.EPOCHS_PER_LAUNCH
+            logger.info("up to %d epochs per call of the epoch engine",
+                        cfg.TRAIN.EPOCHS_PER_LAUNCH)
     t0 = time.time()
     with MetricsWriter(out) as metrics:
-        params, history = fit_fused(
-            params, residuals, mu, train_cfg, seed=cfg.SEED, output_dir=out,
-            logger=logger, val_data=val_residuals,
-            initial_state=initial_state, plain=not use_kernel,
+        fit_kwargs = dict(
+            seed=cfg.SEED, output_dir=out, logger=logger,
+            val_data=val_residuals, initial_state=initial_state,
             metrics_cb=lambda e, loss, dt: metrics.write(
                 epoch=e, loss=loss, seconds=dt,
-                spectra_per_s=round(residuals.size / max(dt, 1e-9), 1)),
-            **kwargs)
+                spectra_per_s=round(residuals.size / max(dt, 1e-9), 1)))
+        if use_kernel:
+            params, history = fit_fused(params, residuals, mu, train_cfg,
+                                        **kwargs, **fit_kwargs)
+        else:
+            params, history = fit(params, residuals, mu, train_cfg,
+                                  **fit_kwargs)
     t_end = time.time()
     save_npz(os.path.join(out, "model_parameters.npz"), params, mu)
     logger.info("training done: %d epochs, final loss %.3f", len(history),
@@ -258,7 +290,7 @@ def run_train(cfg: ConfigNode) -> dict:
     return {
         "n": dataset.size,
         "history": history,
-        "engine": "kernel" if use_kernel else "plain",
+        "engine": "kernel" if use_kernel else "fit",
         "read_s": t0 - t_read,
         "train_s": t_end - t0,
     }

@@ -96,6 +96,20 @@ SIGNATURES = {
         ],
         ctypes.c_int,
     ),
+    "qfa_alu_chain_f32": (
+        [_P, _P, _I, _I, _I,  # x, out, n, n_iters, op
+         _I, _P],  # device, stream
+        ctypes.c_int,
+    ),
+    "qfa_kdepth_f32": (
+        [
+            _P, _P, _P, _P, _P,  # l, lt, r, r2, out
+            _I, _I, _I,  # kmax, tb, p
+            _I, _I, _I, _I,  # k1, k2, mode, grid
+            _I, _P,  # device, stream
+        ],
+        ctypes.c_int,
+    ),
     "qfa_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

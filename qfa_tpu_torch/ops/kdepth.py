@@ -1,0 +1,179 @@
+"""The contraction-depth probe: the training kernels' backward products in
+isolation.
+
+:func:`contraction_probe` runs
+
+* on CUDA tensors, the hand-written CUDA kernel ``csrc/kdepth.cu`` (the
+  port of ``tools/mxu_kdepth.py``'s ``_body``), built at first use by
+  :mod:`._build`; a launch that fails raises;
+* on CPU tensors, :func:`contraction_probe_plain`, the same steps in plain
+  torch ops: the reference the kernel is held against on the card.
+
+Each of ``grid`` steps ``j`` scales the left operand by ``s_j = 1 + j *
+1e-9`` (float32) and adds ``dw * 0.5 + du * 0.25`` (or ``dw * 0.5``
+without a second contraction) to a (TB, P) output, with ``dw = (s_j
+L[:k1])^T R[:k1]`` and ``du`` the next ``k2`` rows; ``vpu_k2=True`` takes
+``du``'s left operand from the transposed ``lt``, ``vpu_k2="wide"`` runs
+one ``k1 + k2`` contraction against the block-diagonal ``r2`` (KMAX, 2P)
+and combines its halves.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+Tensor = torch.Tensor
+
+__all__ = ["KMAX", "LAUNCHES", "P", "TB", "VARIANTS", "contraction_probe",
+           "contraction_probe_plain", "step_scale"]
+
+#: Calls that launched the CUDA probe kernel in this process. Incremented
+#: where the wrapper launches the kernel, and nowhere else.
+LAUNCHES = 0
+_LAUNCH_LOCK = threading.Lock()
+
+#: the probe's shapes: output rows (the training kernels' batch tile),
+#: pixels, and the largest contraction depth
+TB = 256
+P = 1920
+KMAX = 128
+
+#: (name, K1, K2-or-None, vpu_k2), as in tools/mxu_kdepth.py: K2 mimics the
+#: training kernels' second (du) product; vpu_k2=True reads its left
+#: operand from the transposed lt, "wide" runs one K1 + K2 contraction
+#: against the block-diagonal r2.
+VARIANTS = (
+    ("pair36+8", 36, 8, False),
+    ("single8", 8, None, False),
+    ("single44", 44, None, False),
+    ("single64", 64, None, False),
+    ("single128", 128, None, False),
+    ("vpu8", 0, 8, True),
+    ("pair36+vpu8", 36, 8, True),
+    ("wide44", 36, 8, "wide"),
+)
+
+#: the CUDA kernel's tile: TB must be a multiple of _BM, P of _BN
+_BM, _BN = 32, 64
+_MODE = {False: 0, True: 1, "wide": 2}
+
+
+def step_scale(j: int) -> float:
+    """The step's operand scale ``1 + j * 1e-9``, rounded as float32
+    arithmetic rounds it (the product, then the sum)."""
+    return float(np.float32(1.0) + np.float32(j) * np.float32(1e-9))
+
+
+def _check(l, lt, r, r2, k1, k2, vpu_k2, grid) -> None:
+    variants = {(v[1], v[2], v[3]) for v in VARIANTS}
+    if (k1, k2, vpu_k2) not in variants:
+        raise ValueError(f"(k1, k2, vpu_k2) = {(k1, k2, vpu_k2)} is none of "
+                         f"the probe's VARIANTS")
+    if int(grid) != grid or grid < 0:
+        raise ValueError(f"grid must be an integer >= 0, got {grid!r}")
+    if l.ndim != 2:
+        raise ValueError(f"l must be (KMAX, TB), got {tuple(l.shape)}")
+    kmax, tb = l.shape
+    p = r.shape[-1]
+    want = {"l": (kmax, tb), "lt": (tb, kmax), "r": (kmax, p),
+            "r2": (kmax, 2 * p)}
+    for name, t in zip(want, (l, lt, r, r2)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} is {tuple(t.shape)}, must be "
+                             f"{want[name]}")
+        if t.dtype not in (torch.float32, torch.float64) or \
+                t.dtype != l.dtype:
+            raise TypeError(f"{name} is {t.dtype}; the operands must all be "
+                            "float32 (or all float64 for a reference)")
+        if t.device != l.device:
+            raise ValueError(f"{name} is on {t.device} but l on {l.device}")
+    if k1 + (k2 or 0) > kmax:
+        raise ValueError(f"k1 + k2 = {k1 + (k2 or 0)} exceeds KMAX {kmax}")
+
+
+@torch.no_grad()
+def contraction_probe_plain(l: Tensor, lt: Tensor, r: Tensor, r2: Tensor, *,
+                            k1: int, k2: int | None, vpu_k2, grid: int
+                            ) -> Tensor:
+    """:func:`contraction_probe` in plain torch ops, on any device: a Python
+    loop over the ``grid`` steps, each step's products in the dtype of the
+    inputs (float32; float64 operands give a reference)."""
+    _check(l, lt, r, r2, k1, k2, vpu_k2, grid)
+    p = r.shape[1]
+    out = torch.zeros((l.shape[1], p), dtype=l.dtype, device=l.device)
+    for j in range(grid):
+        s = step_scale(j)
+        l_all = l * s
+        if vpu_k2 == "wide":
+            wide = l_all[: k1 + k2].T @ r2[: k1 + k2]
+            out = out + (wide[:, :p] * 0.5 + wide[:, p:] * 0.25)
+            continue
+        dw = l_all[:k1].T @ r[:k1] if k1 else None
+        if k2 is None:
+            out = out + dw * 0.5
+            continue
+        if vpu_k2:
+            lt_s = lt * s
+            du = lt_s[:, k1:k1 + 1] * r[k1:k1 + 1]
+            for jj in range(1, k2):
+                du = du + lt_s[:, k1 + jj:k1 + jj + 1] * r[k1 + jj:k1 + jj + 1]
+        else:
+            du = l_all[k1:k1 + k2].T @ r[k1:k1 + k2]
+        out = out + (du * 0.25 if dw is None else dw * 0.5 + du * 0.25)
+    return out
+
+
+def _launch(l, lt, r, r2, k1, k2, vpu_k2, grid) -> Tensor:
+    from ._build import load_library
+
+    kmax, tb = l.shape
+    p = r.shape[1]
+    if l.dtype != torch.float32:
+        raise TypeError(f"the CUDA probe kernel takes float32, not {l.dtype}")
+    if tb % _BM or p % _BN:
+        raise ValueError(f"the CUDA probe kernel needs TB % {_BM} == 0 and "
+                         f"P % {_BN} == 0; got TB={tb}, P={p}")
+    for name, t in zip(("l", "lt", "r", "r2"), (l, lt, r, r2)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    out = torch.empty((tb, p), dtype=torch.float32, device=l.device)
+    lib = load_library()
+    dev = l.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.qfa_kdepth_f32(
+            l.data_ptr(), lt.data_ptr(), r.data_ptr(), r2.data_ptr(),
+            out.data_ptr(), kmax, tb, p, k1, k2 or 0, _MODE[vpu_k2],
+            int(grid),
+            dev.index if dev.index is not None else torch.cuda.current_device(),
+            stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"CUDA kdepth kernel launch failed: error {rc} "
+            f"({lib.qfa_cuda_error_string(rc).decode()})")
+    global LAUNCHES
+    with _LAUNCH_LOCK:
+        LAUNCHES += 1
+    return out
+
+
+@torch.no_grad()
+def contraction_probe(l: Tensor, lt: Tensor, r: Tensor, r2: Tensor, *,
+                      k1: int, k2: int | None, vpu_k2, grid: int) -> Tensor:
+    """``grid`` steps of the probe variant ``(k1, k2, vpu_k2)`` (one of
+    ``VARIANTS``) over float32 ``l`` (KMAX, TB), ``lt`` (TB, KMAX), ``r``
+    (KMAX, P) and ``r2`` (KMAX, 2P); returns the (TB, P) sum. CPU tensors
+    run :func:`contraction_probe_plain`; CUDA tensors launch the CUDA
+    kernel on the current stream, or raise (contiguous, TB a multiple of
+    32, P of 64)."""
+    _check(l, lt, r, r2, k1, k2, vpu_k2, grid)
+    if l.device.type == "cpu":
+        return contraction_probe_plain(l, lt, r, r2, k1=k1, k2=k2,
+                                       vpu_k2=vpu_k2, grid=grid)
+    if l.device.type != "cuda":
+        raise ValueError(f"contraction_probe runs on cpu or cuda, not "
+                         f"{l.device}")
+    return _launch(l, lt, r, r2, k1, k2, vpu_k2, grid)

@@ -1,0 +1,2 @@
+"""Measurement tools of the port, run on the card as ``python -m
+qfa_tpu_torch.tools.<name>``."""

@@ -57,9 +57,9 @@ def test_port_imports_neither_jax_nor_qfa_tpu():
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split(" ", 1)
     assert bad.strip() == "[]"
-    # every module of the slices was imported (37 since the streaming,
-    # synthetic and step-kernel modules)
-    assert int(count) >= 37
+    # every module of the slices was imported (42 since the calibration
+    # and probe modules of the measurement path)
+    assert int(count) >= 42
 
 
 def test_chip_smoke_imports_no_jax():
@@ -121,23 +121,28 @@ GRID_OPTS = ["DATA.LAMMIN", "1150.0", "DATA.LAMMAX", "1300.0",
              "DATA.LOGLAM_DELTA", "0.001"]
 
 
+def cli_train(catalog, data_dir, out, epochs, *opts):
+    return port_main([
+        "--type", "train", "--catalog", catalog, "--data_dir", data_dir,
+        "--output_dir", str(out), "--data_num", "32", "--batch_size", "12",
+        "--n_epochs", str(epochs), "--nh", "3", "--device", "cpu", "--opts",
+        "TRAIN.SMOOTH_INTERVAL", "2", "TRAIN.SAVE_INTERVAL", "2", *GRID_OPTS,
+        *opts])
+
+
 def test_cli_train_writes_run_and_resumes(tmp_path):
-    """--type train --device cpu writes the run directory; the model npz
+    """--type train --device cpu runs train.fit, as the JAX CLI does
+    without an accelerator, and writes the run directory; the model npz
     loads in the JAX package; a second run with more epochs auto-resumes
     from the newest full state."""
     catalog, data_dir = write_training_set(tmp_path)
     out = tmp_path / "run"
 
     def train(epochs):
-        return port_main([
-            "--type", "train", "--catalog", catalog, "--data_dir", data_dir,
-            "--output_dir", str(out), "--data_num", "32", "--batch_size",
-            "12", "--n_epochs", str(epochs), "--nh", "3", "--device", "cpu",
-            "--opts", "TRAIN.SMOOTH_INTERVAL", "2", "TRAIN.SAVE_INTERVAL",
-            "2", *GRID_OPTS])
+        return cli_train(catalog, data_dir, out, epochs)
 
     first = train(4)
-    assert first["engine"] == "plain" and first["n"] == 32
+    assert first["engine"] == "fit" and first["n"] == 32
     assert len(first["history"]) == 4 and np.isfinite(first["history"]).all()
     names = set(os.listdir(out))
     assert {"config.yaml", "log.txt", "metrics.jsonl", "model_parameters.npz",
@@ -151,13 +156,48 @@ def test_cli_train_writes_run_and_resumes(tmp_path):
     assert params.F.shape == (54, 3) and params.omega.shape == (25,)
     assert mu.shape == (54,) and np.isfinite(np.asarray(params.F)).all()
     log = (out / "log.txt").read_text()
-    assert "whole-epoch engine on the plain torch version" in log
-    assert "derived mask + zq-column redshifts" in log
+    assert "trainer engine: XLA trainer (train.fit" in log
+    # the derived layout belongs to the fused engine only
+    assert "derived mask + zq-column redshifts" not in log
 
     second = train(6)
     assert len(second["history"]) == 2
     log = (out / "log.txt").read_text()
     assert "auto-resumed full training state" in log and "(epoch 4)" in log
+
+
+@pytest.mark.parametrize("engine", ["auto", "pallas", "xla"])
+def test_cli_train_off_the_card_runs_fit_not_fit_fused(tmp_path, monkeypatch,
+                                                       engine):
+    """Every engine on --device cpu goes to train.fit with the JAX CLI's
+    arguments; fit_fused is never called."""
+    import qfa_tpu_torch.train as train_pkg
+
+    calls = []
+    real_fit = train_pkg.fit
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return real_fit(*args, **kw)
+
+    def no_fused(*args, **kw):
+        raise AssertionError("fit_fused called")
+
+    monkeypatch.setattr(train_pkg, "fit", spy)
+    monkeypatch.setattr(train_pkg, "fit_fused", no_fused)
+    catalog, data_dir = write_training_set(tmp_path)
+    out = tmp_path / "run"
+    run = cli_train(catalog, data_dir, out, 2, "TRAIN.ENGINE", engine,
+                    "SEED", "5")
+    assert run["engine"] == "fit" and len(run["history"]) == 2
+    assert len(calls) == 1
+    kw = calls[0]
+    assert kw["seed"] == 5 and kw["output_dir"] == str(out)
+    assert kw["initial_state"] is None and callable(kw["metrics_cb"])
+    assert {"val_data", "logger"} <= set(kw)
+    log = (out / "log.txt").read_text()
+    assert ("requested but cpu is no CUDA device" in log) == \
+        (engine == "pallas")
 
 
 def test_cli_train_device_cuda_raises_without_gpu(no_gpu, tmp_path):

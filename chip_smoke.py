@@ -24,16 +24,24 @@ made from a seed:
    SDSS width (4096 spectra, batch 512, 2 epochs) and DESI width (512
    spectra, 1 epoch), derived and plane layouts, and the training CLI's
    shape (2048 spectra padded to 2500 rows, batch 500, tile 4, 4
-   epochs, derived layout), bf16 operands off and on; 3 epochs in one
+   epochs, derived layout), bf16 operands off and on, float32 and (at
+   SDSS and DESI width) bfloat16 delta/error planes; 3 epochs in one
    call against 3 chained calls, and inert padding rows, both bitwise;
 8. training main path: ``cli.main(["--type", "train", ..., "--device",
    "cuda"])`` on 2048 spectra written to disk, held against
    ``fit_fused(plain=True)`` called directly on the same loaded data and
-   seed; the CLI once more with ``TRAIN.ENGINE xla`` (``train.fit``, no
-   epoch kernel); then ``--type predict`` from the trained model through
-   the prediction kernel;
-9. times of one training epoch of 65536 spectra, kernel and plain, and
-   the two epochs' outputs held against each other as in phase 7;
+   seed, then the same pair with ``TRAIN.BF16_PLANES``; the CLI once
+   more with ``TRAIN.ENGINE xla`` (``train.fit``, no epoch kernel); then
+   ``--type predict`` from the trained model through the prediction
+   kernel;
+9. times of one training epoch of 65536 spectra, kernel and plain (bf16
+   and f32 operands, and bf16 operands on bf16 planes), the two epochs'
+   outputs held against each other as in phase 7; then one kernel epoch
+   with each kernel launched when the one before it has ended (no early
+   launch, so that a kernel's span is its own work), timed and under
+   ``torch.profiler``: device time and launches of each stage, busy
+   share, a check of three launches per batch, and its results bitwise
+   equal to the early launch's;
 10. the step kernel against its plain version on the same CUDA tensors:
     SDSS width at batch 500 with 116 weight-0 rows duplicating row 0 (the
     stream's tail batch of 384 real rows), DESI width at batch 128, each
@@ -65,6 +73,7 @@ that line. Imports nothing of JAX.
 """
 
 import argparse
+import itertools
 import json
 import os
 import re
@@ -201,6 +210,8 @@ KDEPTH_FULL_REL = 1e-4
 #: the probe's grid (tools/mxu_kdepth.py's default)
 KDEPTH_GRID = 4096
 PARAM_NAMES = ("F", "Psi", "omega", "tau0", "c0", "beta")
+#: the kernels of csrc/epoch.cu, each launched once per batch
+EPOCH_STAGES = ("forward_kernel", "backward_kernel", "update_kernel")
 NPZ_KEYS = {"ll": "ll", "hmean": "hmean", "hcov": "hcov",
             "continuum": "cont", "continuum_std": "uncertainty"}
 
@@ -569,6 +580,15 @@ def norm_rel(a, b):
     return float((a - b).norm() / b.norm().clamp(min=1e-30))
 
 
+def epoch_tensors(out):
+    """Every tensor an epoch call returns: loss sums, n_real, params, m, v."""
+    from qfa_tpu_torch.models.params import PARAM_NAMES
+
+    return [out.loss_sums, out.n_real] + [
+        getattr(getattr(out, part), k) for part in ("params", "m", "v")
+        for k in PARAM_NAMES]
+
+
 def compare_epoch(name, got, want, mode):
     """Kernel against plain outputs of fused_train_epoch, held to
     EPOCH_LIMITS[mode]; returns the max abs error over the parameters
@@ -628,15 +648,18 @@ def phase_epoch_vs_plain(device):
 
     worst = 0.0
     tb = 64
-    # (label, grid, spectra, batch, tile, epochs, layouts); the last case
-    # is the training CLI's shape in phase 8: 2048 spectra padded to 5
-    # batches of 500 rows (the last backward chunk of each batch holds
-    # 20 of 32 rows), tile 4, 4 epochs, derived layout
-    cases = (("SDSS", SDSS, 4096, 512, tb, 2, ("derived", "plane")),
-             ("DESI", DESI, 512, 256, tb, 1, ("derived", "plane")),
+    # (label, grid, spectra, batch, tile, epochs, layouts, plane types);
+    # the last case is the training CLI's shape in phase 8: 2048 spectra
+    # padded to 5 batches of 500 rows (the last backward chunk of each
+    # batch holds 20 of 32 rows), tile 4, 4 epochs, derived layout. bf16
+    # planes: kernel and plain version get the same bfloat16 delta and
+    # error planes and are held to the float32 planes' limits
+    both = (torch.float32, torch.bfloat16)
+    cases = (("SDSS", SDSS, 4096, 512, tb, 2, ("derived", "plane"), both),
+             ("DESI", DESI, 512, 256, tb, 1, ("derived", "plane"), both),
              ("SDSS CLI shape", SDSS, 2048, 500, pick_tiling(500)[0], 4,
-              ("derived",)))
-    for label, grid_kw, n, batch, tile, n_epochs, layouts in cases:
+              ("derived",), (torch.float32,)))
+    for label, grid_kw, n, batch, tile, n_epochs, layouts, planes in cases:
         grid = make_grid(**grid_kw)
         params, mu = seeded_params(grid, device)
         data = pad_rows(train_problem(grid, params, mu, n, SEED + 21),
@@ -646,25 +669,26 @@ def phase_epoch_vs_plain(device):
         g = torch.Generator().manual_seed(SEED)
         perm = torch.stack([torch.randperm(rows // tile, generator=g)
                             for _ in range(n_epochs)])
-        for name in layouts:
+        for name, dtype, mxu in itertools.product(layouts, planes,
+                                                  (False, True)):
             zabs, mask, kw = layout(grid, data, name)
-            for mxu in (False, True):
-                args = (params, st.m, st.v, data["delta"], data["error"],
-                        zabs, perm, mask)
-                kw2 = dict(kw, epoch=0, n_batches=rows // batch,
-                           n_epochs=n_epochs, tile_batch=tile, mxu_bf16=mxu)
-                got = fused_train_epoch(*args, **kw2)
-                torch.cuda.synchronize()
-                want = fused_train_epoch_plain(*args, **kw2)
-                torch.cuda.synchronize()
-                case = (f"{label} {name} layout, "
-                        f"{'bf16' if mxu else 'f32'} operands")
-                err, detail = compare_epoch(case, got, want,
-                                            "bf16" if mxu else "f32")
-                worst = max(worst, err)
-                say(f"  {case}: n={n} ({rows} rows) batch={batch} "
-                    f"tile={tile} epochs={n_epochs}; params "
-                    f"max_abs_err={err!r}; {detail}")
+            args = (params, st.m, st.v, data["delta"].to(dtype),
+                    data["error"].to(dtype), zabs, perm, mask)
+            kw2 = dict(kw, epoch=0, n_batches=rows // batch,
+                       n_epochs=n_epochs, tile_batch=tile, mxu_bf16=mxu)
+            got = fused_train_epoch(*args, **kw2)
+            torch.cuda.synchronize()
+            want = fused_train_epoch_plain(*args, **kw2)
+            torch.cuda.synchronize()
+            case = (f"{label} {name} layout, "
+                    f"{'bf16' if dtype == torch.bfloat16 else 'f32'} "
+                    f"planes, {'bf16' if mxu else 'f32'} operands")
+            err, detail = compare_epoch(case, got, want,
+                                        "bf16" if mxu else "f32")
+            worst = max(worst, err)
+            say(f"  {case}: n={n} ({rows} rows) batch={batch} "
+                f"tile={tile} epochs={n_epochs}; params "
+                f"max_abs_err={err!r}; {detail}")
     # 3 epochs in one call against 3 chained calls; inert padding rows
     grid = make_grid(**SDSS)
     params, mu = seeded_params(grid, device)
@@ -743,6 +767,7 @@ def phase_train_cli(root, grid, n=2048, epochs=4):
     from the trained model."""
     from qfa_tpu_torch import cli
     from qfa_tpu_torch.config import get_config
+    from qfa_tpu_torch.data.loader import bf16_planes
     from qfa_tpu_torch.models.params import load_npz, random_init
     from qfa_tpu_torch.ops import epoch_kernel, infer_kernel
     from qfa_tpu_torch.train import fit_fused
@@ -783,28 +808,52 @@ def phase_train_cli(root, grid, n=2048, epochs=4):
           and all(bool(torch.isfinite(getattr(params, k)).all())
                   for k in PARAM_NAMES), "trained model has bad values")
 
-    # the kernel run against the plain version of the same engine, called
-    # directly on the data as the CLI loads it, from the same seed
-    cfg = get_config(cli.build_parser().parse_args(
-        base + ["--output_dir", os.path.join(root, "train_plain")] + opts))
-    dataset, mu_p, residuals, val = cli._load_training_data(
-        cfg, grid, torch.device("cuda"))
-    residuals, layout_kw = cli.resident_layout(dataset, residuals, grid,
-                                               torch.device("cuda"))
-    check(bool(layout_kw), "the direct run did not take the derived layout")
-    t0 = time.perf_counter()
-    _, hp = fit_fused(
-        random_init(grid.npix, grid.nb, NH,
-                    generator=torch.Generator().manual_seed(SEED)).cuda(),
-        residuals, mu_p, cli.train_config(cfg), seed=SEED, val_data=val,
-        plain=True, **layout_kw)
-    plain_s = time.perf_counter() - t0
-    check(epoch_kernel.LAUNCHES == launches,
-          "fit_fused(plain=True) launched the epoch kernel")
-    hk = np.asarray(run_k["history"])
-    rel = float(np.max(np.abs(hk - np.asarray(hp)) / np.abs(hp)))
-    check(rel <= CLI_LOSS_RTOL, f"CLI train losses of the kernel and of "
-          f"fit_fused(plain=True) differ by {rel:.3g}: {hk} vs {hp}")
+    def against_plain(run, extra):
+        """The kernel run against the plain version of the same engine,
+        called directly on the data as the CLI loads it (and casts it,
+        with TRAIN.BF16_PLANES), from the same seed."""
+        cfg = get_config(cli.build_parser().parse_args(
+            base + ["--output_dir", os.path.join(root, "train_plain")]
+            + opts + extra))
+        dataset, mu_p, residuals, val = cli._load_training_data(
+            cfg, grid, torch.device("cuda"))
+        if cfg.TRAIN.BF16_PLANES:
+            residuals = bf16_planes(residuals)
+        residuals, layout_kw = cli.resident_layout(dataset, residuals, grid,
+                                                   torch.device("cuda"))
+        check(bool(layout_kw), "the direct run did not take the derived "
+              "layout")
+        before = epoch_kernel.LAUNCHES
+        t0 = time.perf_counter()
+        _, hp = fit_fused(
+            random_init(grid.npix, grid.nb, NH,
+                        generator=torch.Generator().manual_seed(SEED)).cuda(),
+            residuals, mu_p, cli.train_config(cfg), seed=SEED, val_data=val,
+            plain=True, **layout_kw)
+        plain_s = time.perf_counter() - t0
+        check(epoch_kernel.LAUNCHES == before,
+              "fit_fused(plain=True) launched the epoch kernel")
+        hk = np.asarray(run["history"])
+        rel = float(np.max(np.abs(hk - np.asarray(hp)) / np.abs(hp)))
+        check(rel <= CLI_LOSS_RTOL, f"CLI train losses of the kernel and of "
+              f"fit_fused(plain=True) differ by {rel:.3g}: {hk} vs {hp}")
+        return rel, plain_s
+
+    rel, plain_s = against_plain(run_k, [])
+
+    # TRAIN.BF16_PLANES: the planes stay bfloat16 on the card and the
+    # kernel reads them (no cast back to float32)
+    out_b = os.path.join(root, "train_bf16_planes")
+    before = epoch_kernel.LAUNCHES
+    run_b = cli.main(base + ["--output_dir", out_b] + opts
+                     + ["TRAIN.BF16_PLANES", "True"])
+    check(run_b["engine"] == "kernel" and epoch_kernel.LAUNCHES > before,
+          "CLI train with TRAIN.BF16_PLANES did not launch the epoch kernel")
+    with open(os.path.join(out_b, "log.txt")) as f:
+        check("capacity mode: bf16-stored delta/error planes" in f.read(),
+              "CLI train with TRAIN.BF16_PLANES did not store bf16 planes")
+    rel_b, _ = against_plain(run_b, ["TRAIN.BF16_PLANES", "True"])
+    launches = epoch_kernel.LAUNCHES
 
     # TRAIN.ENGINE xla: the per-step trainer train.fit, as in the JAX CLI
     out_x = os.path.join(root, "train_fit")
@@ -834,13 +883,17 @@ def phase_train_cli(root, grid, n=2048, epochs=4):
     with np.load(os.path.join(out_pred, "predict", names[0])) as r:
         check(all(bool(np.isfinite(r[k]).all()) for k in NPZ_KEYS.values()),
               "predictions from the trained model are not finite")
-    return launches, run_k, run_x, rel, plain_s
+    return launches, run_k, run_x, rel, plain_s, run_b, rel_b
 
 
 def phase_train_times(device, n=65536, batch=500, plain_reps=1, reps=3):
     """One epoch of n SDSS spectra at the CLI's batch and tiling, derived
-    layout; kernel and plain version, bf16 operands on and off."""
+    layout; kernel and plain version, bf16 operands on and off, and bf16
+    operands on bf16 planes. Then one kernel epoch (bf16 operands) with no
+    early launch, timed and under torch.profiler: device time and
+    launches by kernel, busy share."""
     from qfa_tpu_torch.data.grid import make_grid
+    from qfa_tpu_torch.ops import epoch_kernel
     from qfa_tpu_torch.ops.epoch_kernel import (
         fused_train_epoch,
         fused_train_epoch_plain,
@@ -858,8 +911,12 @@ def phase_train_times(device, n=65536, batch=500, plain_reps=1, reps=3):
     perm = torch.randperm(n_batches * batch // tb,
                           generator=torch.Generator().manual_seed(SEED))
     out = {}
-    for mxu in (True, False):
-        args = (params, st.m, st.v, data["delta"], data["error"], zq, perm)
+    for label, mxu, dtype in (("bf16 operands", True, torch.float32),
+                              ("f32 operands", False, torch.float32),
+                              ("bf16 operands, bf16 planes", True,
+                               torch.bfloat16)):
+        args = (params, st.m, st.v, data["delta"].to(dtype),
+                data["error"].to(dtype), zq, perm)
         kw2 = dict(kw, epoch=0, n_batches=n_batches, tile_batch=tb,
                    mxu_bf16=mxu)
         runs = {"kernel": lambda: fused_train_epoch(*args, **kw2),
@@ -868,15 +925,39 @@ def phase_train_times(device, n=65536, batch=500, plain_reps=1, reps=3):
         got, want = runs["kernel"](), runs["plain"]()
         torch.cuda.synchronize()
         err, detail = compare_epoch(
-            f"one epoch of {n} spectra, {'bf16' if mxu else 'f32'} operands",
-            got, want, f"bf16, {n_batches} updates" if mxu else "f32")
+            f"one epoch of {n} spectra, {label}", got, want,
+            f"bf16, {n_batches} updates" if mxu else "f32")
         samples = {"kernel": [], "plain": []}
         for order in (("plain", "kernel"), ("kernel", "plain")):
             for which in order:
                 samples[which].append(time_cuda(
                     runs[which], reps if which == "kernel" else plain_reps))
-        out[mxu] = {k: statistics.median(v) for k, v in samples.items()}
-        out[mxu].update(max_abs_err=err, detail=detail)
+        out[label] = {k: statistics.median(v) for k, v in samples.items()}
+        out[label].update(max_abs_err=err, detail=detail)
+    # the stages of one kernel epoch (bf16 operands, float32 planes), each
+    # kernel launched when the one before it has ended: with the early
+    # launch, a kernel's span would count its wait for the one before
+    args = (params, st.m, st.v, data["delta"], data["error"], zq, perm)
+    kw2 = dict(kw, epoch=0, n_batches=n_batches, tile_batch=tb, mxu_bf16=True)
+    epoch_kernel.EARLY_LAUNCH = False
+    try:
+        alone = fused_train_epoch(*args, **kw2)
+        ms_alone = time_cuda(lambda: fused_train_epoch(*args, **kw2), reps)
+        _, by_name, _, busy, counts = profile_run(
+            lambda: fused_train_epoch(*args, **kw2))
+    finally:
+        epoch_kernel.EARLY_LAUNCH = True
+    early = fused_train_epoch(*args, **kw2)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(epoch_tensors(alone),
+                                                 epoch_tensors(early))),
+          "the epoch kernel's results depend on the early launch")
+    stages = None if by_name is None else {}
+    for k, v in (by_name or {}).items():  # ms and launches by short name
+        short = (re.search(r"\w+_kernel", k) or re.match(".{0,40}", k))[0]
+        ms, calls = stages.get(short, (0.0, 0))
+        stages[short] = (ms + v * 1e3, calls + counts[k])
+    out["profile"] = dict(stages=stages, busy=busy, ms_alone=ms_alone)
     return out, n, n_batches, tb
 
 
@@ -1094,8 +1175,8 @@ def phase_streaming(root, problem, device):
 def profile_run(run):
     """Run ``run()`` under torch.profiler. Returns (wall s, device time
     by kernel or copy name in s, H2D copy s, device busy share of the
-    wall); the last three are None when the profiler sees no device
-    activity."""
+    wall, device events by name); the last four are None when the
+    profiler sees no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1108,11 +1189,12 @@ def profile_run(run):
     dev = [e for e in prof.events()
            if getattr(e, "device_type", None) == DeviceType.CUDA]
     if not dev:
-        return wall, None, None, None
-    by_name = {}
+        return wall, None, None, None, None
+    by_name, counts = {}, {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() * 1e-6
+        counts[e.name] = counts.get(e.name, 0) + 1
     h2d = sum(v for k, v in by_name.items() if "HtoD" in k)
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, (cur_s, cur_e) = 0.0, spans[0]
@@ -1123,7 +1205,7 @@ def profile_run(run):
         else:
             cur_e = max(cur_e, e_)
     busy += cur_e - cur_s
-    return wall, by_name, h2d, busy * 1e-6 / wall
+    return wall, by_name, h2d, busy * 1e-6 / wall, counts
 
 
 def phase_step_times(device, problem, reps=20):
@@ -1179,7 +1261,7 @@ def phase_step_times(device, problem, reps=20):
 
     # device time of the kernel's four stages per call
     calls = 20
-    _, stages, _, _ = profile_run(
+    _, stages, _, _, _ = profile_run(
         lambda: [fused_loss_grads(params, batch) for _ in range(calls)])
     out["stages_us"] = None if stages is None else {
         (re.search(r"\w+_kernel(<\d+>)?", k) or re.match(".{0,40}", k))[0]:
@@ -1190,7 +1272,7 @@ def phase_step_times(device, problem, reps=20):
     epoch(1)
     torch.cuda.synchronize()
     out["epoch_wall_s"] = time.perf_counter() - t0
-    _, _, out["h2d_s"], out["busy"] = profile_run(lambda: epoch(2))
+    _, _, out["h2d_s"], out["busy"], _ = profile_run(lambda: epoch(2))
     out["n"] = host.size
     return out, batch
 
@@ -1510,8 +1592,8 @@ def main(argv=None):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
             t0 = time.perf_counter()
             zero_counts()
-            train_launches, run_k, run_x, rel, plain_s = phase_train_cli(
-                root, grid)
+            train_launches, run_k, run_x, rel, plain_s, run_b, rel_b = \
+                phase_train_cli(root, grid)
             check(fused_step.LAUNCHES == 0,
                   "the training CLI launched the step kernel")
             say(f"phase 8 CLI train: {run_k['n']} spectra, batch 500, "
@@ -1525,15 +1607,20 @@ def main(argv=None):
                 f" xla ran train.fit, no epoch kernel, train "
                 f"{run_x['train_s']:.3f} s, losses "
                 f"{[round(x, 4) for x in run_x['history']]}; --type predict "
-                "from the trained model ran the prediction kernel; phase "
-                f"{time.perf_counter() - t0:.1f} s")
+                "from the trained model ran the prediction kernel; "
+                "TRAIN.BF16_PLANES on the kernel: train "
+                f"{run_b['train_s']:.3f} s, losses "
+                f"{[round(x, 4) for x in run_b['history']]} match "
+                f"fit_fused(plain=True) on the same bf16 planes to "
+                f"{rel_b:.2e}; phase {time.perf_counter() - t0:.1f} s")
 
     if want(9):
         ttimes, tn, n_batches, tb = phase_train_times(device)
-        for mxu, t in ttimes.items():
+        prof = ttimes.pop("profile")
+        for label, t in ttimes.items():
             say(f"phase 9 times ({smi}), one training epoch, SDSS width, "
                 f"{tn} spectra, batch 500 ({n_batches} batches, tile {tb}), "
-                f"derived layout, {'bf16' if mxu else 'f32'} operands: "
+                f"derived layout, {label}: "
                 f"kernel {t['kernel']!r} ms ({tn / t['kernel'] * 1e3:.0f} "
                 f"spectra/s), plain {t['plain']!r} ms "
                 f"({tn / t['plain'] * 1e3:.0f} spectra/s); kernel against "
@@ -1541,6 +1628,26 @@ def main(argv=None):
                 f"{t['detail']}")
             train_worst = max(train_worst, t["max_abs_err"]) if want(7) \
                 else t["max_abs_err"]
+        if prof["stages"] is None:
+            say("  epoch kernel by stage: not measured (torch.profiler saw "
+                "no device activity)")
+        else:
+            launches = {k: c for k, (_, c) in prof["stages"].items()}
+            say(f"  one kernel epoch, bf16 operands, each kernel launched "
+                f"when the one before it has ended (no early launch): "
+                f"{prof['ms_alone']!r} ms; by stage (torch.profiler, "
+                f"{smi}): " + ", ".join(
+                    f"{k} {ms!r} ms in {c} launches "
+                    f"({ms / c * 1e3:.2f} us each)"
+                    for k, (ms, c) in prof["stages"].items())
+                + f"; device busy share {prof['busy']!r}; "
+                f"{sum(launches.values())} device launches in the call, "
+                f"{sum(c for k, c in launches.items() if k in EPOCH_STAGES)}"
+                f" of them epoch.cu's ({n_batches} batches); results "
+                "bitwise equal to the early launch's")
+            check(all(launches.get(k) == n_batches for k in EPOCH_STAGES),
+                  f"epoch.cu launched {launches}, not one of each of "
+                  f"{EPOCH_STAGES} per batch")
 
     if want(10):
         say("phase 10 step kernel vs plain version on the card:")
@@ -1616,7 +1723,8 @@ def main(argv=None):
               times[False]["kernel"], times[False]["plain"], b_pred),
         entry("epoch_kernel", "qfa_tpu_torch/csrc/epoch.cu",
               "qfa_tpu/ops/epoch_kernel.py:237", train_launches, train_worst,
-              ttimes[True]["kernel"], ttimes[True]["plain"], b_epoch),
+              ttimes["bf16 operands"]["kernel"],
+              ttimes["bf16 operands"]["plain"], b_epoch),
         entry("step_kernel", "qfa_tpu_torch/csrc/step.cu",
               "qfa_tpu/ops/fused_step.py:155", step_launches, step_worst,
               t12["kernel"], t12["plain"], b_step),

@@ -89,4 +89,72 @@ __device__ __forceinline__ void kinv_column(const float (&L)[NH][NH], int b,
   solve_upper<NH>(L, y, x);
 }
 
+// The same three steps with the reciprocals of L's diagonal precomputed:
+// each division by L[i][i] becomes a product (one rounding apart from the
+// division), which shortens the serial chain of one thread's factorization.
+template <int NH>
+__device__ __forceinline__ void chol_rdiag(const float* k_tri,
+                                           float (&L)[NH][NH],
+                                           float (&rd)[NH]) {
+#pragma unroll
+  for (int j = 0; j < NH; ++j) {
+    float s = k_tri[tri_idx(j, j)];
+#pragma unroll
+    for (int p = 0; p < j; ++p) s -= L[j][p] * L[j][p];
+    const float d = sqrtf(s);
+    rd[j] = 1.0f / d;
+    L[j][j] = d;
+#pragma unroll
+    for (int i = j + 1; i < NH; ++i) {
+      float t = k_tri[tri_idx(i, j)];
+#pragma unroll
+      for (int p = 0; p < j; ++p) t -= L[i][p] * L[j][p];
+      L[i][j] = t * rd[j];
+    }
+  }
+}
+
+template <int NH>
+__device__ __forceinline__ void solve_lower_rdiag(const float (&L)[NH][NH],
+                                                  const float (&rd)[NH],
+                                                  const float* b, float* y) {
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    float s = b[i];
+#pragma unroll
+    for (int j = 0; j < i; ++j) s -= L[i][j] * y[j];
+    y[i] = s * rd[i];
+  }
+}
+
+template <int NH>
+__device__ __forceinline__ void solve_upper_rdiag(const float (&L)[NH][NH],
+                                                  const float (&rd)[NH],
+                                                  const float* y, float* x) {
+#pragma unroll
+  for (int i = NH - 1; i >= 0; --i) {
+    float s = y[i];
+#pragma unroll
+    for (int j = i + 1; j < NH; ++j) s -= L[j][i] * x[j];
+    x[i] = s * rd[i];
+  }
+}
+
+template <int NH>
+__device__ __forceinline__ void kinv_column_rdiag(const float (&L)[NH][NH],
+                                                  const float (&rd)[NH],
+                                                  int b, float* x) {
+  float y[NH];
+#pragma unroll
+  for (int i = 0; i < NH; ++i) {
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < i; ++j) {
+      if (j >= b) s -= L[i][j] * y[j];
+    }
+    y[i] = i < b ? 0.0f : (i == b ? rd[i] : s * rd[i]);
+  }
+  solve_upper_rdiag<NH>(L, rd, y, x);
+}
+
 }  // namespace qfa

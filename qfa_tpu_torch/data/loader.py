@@ -389,8 +389,8 @@ def as_f32(x: Tensor | None) -> Tensor | None:
 
 def bf16_planes(data: ResidualDataset) -> ResidualDataset:
     """Store the delta and error planes in bfloat16 (half their bytes);
-    arithmetic stays float32. The CUDA epoch kernel does not take them yet
-    (ROADMAP B1b); the plain version does."""
+    arithmetic stays float32. The epoch kernel and its plain version both
+    take them and convert them at load."""
     cast = lambda x: None if x is None else x.to(torch.bfloat16)  # noqa: E731
     return data._replace(delta=cast(data.delta), error=cast(data.error))
 

@@ -45,6 +45,7 @@ NVCC_FLAGS = (
 _LINK_FLAGS = (*_ARCH, "-shared")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 
 #: ctypes signatures of the library's C entry points: (argtypes, restype).
 #: Every pointer and the stream are c_void_p, so ctypes never truncates
@@ -63,9 +64,10 @@ SIGNATURES = {
         ],
         ctypes.c_int,
     ),
-    "qfa_train_epoch_f32": (
+    "qfa_train_epoch": (
         [
-            _P, _P, _P, _I,  # delta, error, zabs, zabs_ld
+            _P, _P, _I,  # delta, error, planes_bf16
+            _P, _I,  # zabs, zabs_ld
             _P, _P, _P,  # mask, loglam, perm
             _I, _I, _I, _I, _I,  # n_tiles, tile_batch, tiles_per_batch,
             # n_batches, n_epochs
@@ -74,13 +76,18 @@ SIGNATURES = {
             _P, _P, _P, _P, _P,  # F, psi, omega, mF, vF (in place)
             _P, _P, _P, _P, _P,  # mpsi, vpsi, momega, vomega, scal
             _P, _P,  # hp, sched (host float32 arrays)
-            _P, _P, _P, _P, _P, _P,  # S, alpha, rowstat, partials, srows,
-            # books (scratch)
+            _P, _P, _P,  # S, alpha, rowstat (scratch)
+            _P, _L,  # fpart, its length (scratch)
+            _P, _P, _P, _I,  # partials, srows, counters, their count
+            # (scratch)
             _P, _P,  # loss_out, nreal_out
-            _I, _I, _P,  # n_chunks, device, stream
+            _I, _I,  # n_chunks, early
+            _I, _P,  # device, stream
         ],
         ctypes.c_int,
     ),
+    "qfa_train_epoch_fpart_len": ([_I, _I, _I], ctypes.c_longlong),
+    "qfa_train_epoch_n_counters": ([_I, _I], ctypes.c_int),
     "qfa_step_f32": (
         [
             _P, _P, _P, _I,  # delta, error, zabs, zabs_ld

@@ -26,8 +26,10 @@ rows with an observed pixel in the plane layout (padding rows are inert
 in both). ``mxu_bf16`` rounds the operands of the six heavy products (the
 K triangle, W, the two per-pixel cotangents and the two gradient
 accumulations) to bfloat16 and accumulates in float32; sums of the loss
-books, the counts and the Cholesky chain stay float32. bfloat16 delta or
-error planes run on the plain version only (ROADMAP B1b).
+books, the counts and the Cholesky chain stay float32. The delta and error
+planes may be stored in bfloat16 (``TRAIN.BF16_PLANES``, half their
+bytes): both versions convert them to float32 at load, as the JAX kernel
+does.
 
 Not ported: ``sync_grads``/``pending`` (the exact-DP windows, ROADMAP A10)
 raise, and the TPU census switch ``ablate`` does not exist. ``bwd_wide``
@@ -64,18 +66,21 @@ __all__ = [
 LAUNCHES = 0
 _LAUNCH_LOCK = threading.Lock()
 
+#: Whether the CUDA kernel launches each of its kernels early, before the
+#: one ahead of it ends (programmatic dependent launch; results are the
+#: same bit for bit). False makes each kernel's device time its own, for
+#: timing them one by one.
+EARLY_LAUNCH = True
+
 #: the CUDA kernel is instantiated for 1 <= nh <= 10
 MAX_NH = 10
 
-#: stage-2 batch rows per block of the CUDA kernel (``kChunk`` in epoch.cu)
+#: batch rows per backward chunk of the CUDA kernel (``kChunk`` in
+#: epoch.cu)
 _CHUNK_ROWS = 32
 
 _A10 = ("sync_grads/pending (exact data-parallel windows) are not ported "
         "yet: they wait for parallel/ on torch.distributed (ROADMAP A10)")
-_BF16_ROADMAP = (
-    "bfloat16 delta/error planes are not supported by the CUDA epoch kernel "
-    "yet (ROADMAP B1b); pass float32, or run on the CPU plain version"
-)
 
 
 class EpochOutputs(NamedTuple):
@@ -401,6 +406,35 @@ def fused_train_epoch_plain(
     )
 
 
+def _check_kernel_tensors(tensors: dict, dev) -> bool:
+    """Raise on what the CUDA kernel does not take: every tensor on
+    ``dev``, contiguous and float32, except the delta and error planes,
+    which may both be bfloat16. Returns whether they are."""
+    planes = {tensors["delta"].dtype, tensors["error"].dtype}
+    if len(planes) > 1:
+        raise TypeError(f"delta ({tensors['delta'].dtype}) and error "
+                        f"({tensors['error'].dtype}) must share a dtype")
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device} but delta on {dev}")
+        ok = (torch.float32, torch.bfloat16) if name in ("delta", "error") \
+            else (torch.float32,)
+        if t.dtype not in ok:
+            raise TypeError(f"{name} must be "
+                            f"{' or '.join(str(d) for d in ok)}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return planes == {torch.bfloat16}
+
+
+def _device_and_stream(dev) -> tuple[int, int]:
+    """(device index, raw handle of its current stream)."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(dev).cuda_stream
+
+
 def _launch(params, m, v, delta, error, zabs, mask, loglam, geo, *, epoch,
             n_batches, n_epochs, derive_zabs, learning_rate, weight_decay,
             decay_alpha, decay_step, b1, b2, eps, bounds, law,
@@ -419,22 +453,15 @@ def _launch(params, m, v, delta, error, zabs, mask, loglam, geo, *, epoch,
         tensors[k] = getattr(params, k)
         tensors[f"m.{k}"] = getattr(m, k)
         tensors[f"v.{k}"] = getattr(v, k)
-    for name, t in tensors.items():
-        if t is None:
-            continue
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device} but delta on {dev}")
-        if t.dtype == torch.bfloat16:
-            raise NotImplementedError(_BF16_ROADMAP)
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    planes_bf16 = _check_kernel_tensors(tensors, dev)
     npix, nb, nh = geo.npix, geo.nb, geo.nh
     ntri = nh * (nh + 1) // 2
     rows = geo.tpb * geo.tb  # batch rows
     n_chunks = -(-rows // _CHUNK_ROWS)
     f32 = dict(dtype=torch.float32, device=dev)
+    lib = load_library()
+    n_fpart = int(lib.qfa_train_epoch_fpart_len(npix, rows, nh))
+    n_counters = int(lib.qfa_train_epoch_n_counters(npix, rows))
 
     def own(t):  # the kernel updates its own copy of the state in place
         return t.detach().clone().contiguous()
@@ -443,14 +470,18 @@ def _launch(params, m, v, delta, error, zabs, mask, loglam, geo, *, epoch,
     mF, vF = own(m.F), own(v.F)
     mpsi, vpsi, momega, vomega = own(m.Psi), own(v.Psi), own(m.omega), \
         own(v.omega)
+    # the scalar state in row 0; the kernel alternates rows between batches
     scal = torch.stack([params.tau0, params.c0, params.beta, m.tau0, m.c0,
                         m.beta, v.tau0, v.c0, v.beta]).detach().to(**f32)
-    scratch = torch.empty(
-        (rows * (ntri + nh + 3) + n_chunks * (ntri + nh + 6) * npix
-         + 3 * npix + 4,), **f32)
-    s_buf, alpha_buf, rowstat, partials, srows, books = torch.split(
-        scratch, [rows * ntri, rows * nh, rows * 3,
-                  n_chunks * (ntri + nh + 6) * npix, 3 * npix, 4])
+    scal = torch.stack([scal, torch.zeros_like(scal)])
+    sizes = [rows * ntri, rows * nh, rows * 3, n_fpart,
+             n_chunks * (ntri + nh + 6) * npix]
+    s_buf, alpha_buf, rowstat, fpart, partials = torch.split(
+        torch.empty((sum(sizes),), **f32), sizes)
+    # the update blocks' scalar sums and the batch's books (zero padding)
+    spart = torch.zeros((3 * npix + 16,), **f32)
+    # the kernel's arrival counters: zero at every launch's start and end
+    counters = torch.zeros((n_counters,), dtype=torch.int32, device=dev)
     losses = torch.empty((n_epochs * n_batches,), **f32)
     reals = torch.empty_like(losses)
     perm = geo.perm.to(dev, torch.int32)
@@ -465,22 +496,20 @@ def _launch(params, m, v, delta, error, zabs, mask, loglam, geo, *, epoch,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.qfa_train_epoch_f32(
-            ptr(delta), ptr(error), ptr(zabs), zabs.shape[1], ptr(mask),
-            ptr(tensors["loglam"]), ptr(perm),
-            geo.n_tiles, geo.tb, geo.tpb, n_batches, n_epochs,
-            npix, nb, nh, int(mask is None), int(derive_zabs), int(mxu_bf16),
-            ptr(F), ptr(psi), ptr(omega), ptr(mF), ptr(vF), ptr(mpsi),
-            ptr(vpsi), ptr(momega), ptr(vomega), ptr(scal),
-            hp.ctypes.data, sched.ctypes.data,
-            ptr(s_buf), ptr(alpha_buf), ptr(rowstat), ptr(partials),
-            ptr(srows), ptr(books), ptr(losses), ptr(reals), n_chunks,
-            dev.index if dev.index is not None else torch.cuda.current_device(),
-            stream,
-        )
+    index, stream = _device_and_stream(dev)
+    rc = lib.qfa_train_epoch(
+        ptr(delta), ptr(error), int(planes_bf16), ptr(zabs), zabs.shape[1],
+        ptr(mask), ptr(tensors["loglam"]), ptr(perm),
+        geo.n_tiles, geo.tb, geo.tpb, n_batches, n_epochs,
+        npix, nb, nh, int(mask is None), int(derive_zabs), int(mxu_bf16),
+        ptr(F), ptr(psi), ptr(omega), ptr(mF), ptr(vF), ptr(mpsi),
+        ptr(vpsi), ptr(momega), ptr(vomega), ptr(scal),
+        hp.ctypes.data, sched.ctypes.data,
+        ptr(s_buf), ptr(alpha_buf), ptr(rowstat), ptr(fpart), n_fpart,
+        ptr(partials), ptr(spart), ptr(counters), n_counters, ptr(losses),
+        ptr(reals),
+        n_chunks, int(EARLY_LAUNCH), index, stream,
+    )
     if rc != 0:
         raise RuntimeError(
             f"CUDA epoch kernel launch failed: error {rc} "
@@ -489,6 +518,7 @@ def _launch(params, m, v, delta, error, zabs, mask, loglam, geo, *, epoch,
     with _LAUNCH_LOCK:
         LAUNCHES += 1
     loss_sums, n_real = _shape_outputs(losses, reals, n_epochs, n_batches)
+    scal = scal[(n_epochs * n_batches - 1) % 2]
     return EpochOutputs(
         params=QFAParams(F, psi, omega, scal[0], scal[1], scal[2]),
         m=QFAParams(mF, mpsi, momega, scal[3], scal[4],
@@ -552,7 +582,8 @@ def fused_train_epoch(
     ``(n_batches,)`` for one epoch and ``(n_epochs, n_batches)`` for
     several. Tensors on the CPU run :func:`fused_train_epoch_plain`;
     tensors on a CUDA device launch the CUDA kernel, or raise (float32,
-    contiguous, all on one device, 1 <= nh <= 10).
+    the delta and error planes float32 or both bfloat16, contiguous, all
+    on one device, 1 <= nh <= 10).
     """
     kw = dict(
         epoch=epoch, n_batches=n_batches, n_epochs=n_epochs, loglam=loglam,

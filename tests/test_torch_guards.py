@@ -7,6 +7,7 @@ the CLI's training run on the CPU, end to end."""
 
 import ast
 import os
+import re
 import stat
 import subprocess
 import sys
@@ -342,3 +343,58 @@ def test_step_kernel_source_and_signature():
     src = (_build.CSRC / "step.cu").read_text()
     assert "int qfa_step_f32(" in src and '#include "smallchol.cuh"' in src
     assert "atomicAdd" not in src  # deterministic: fixed-order sums only
+
+
+def test_no_source_cites_b1b_for_the_epoch_kernel():
+    """B1b is the prediction kernel's bf16 mode; the epoch kernel's is
+    B2b. Only the prediction kernel's wrapper may cite B1b."""
+    pkg = os.path.join(REPO, "qfa_tpu_torch")
+    citing = set()
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cuh")):
+                path = os.path.join(root, name)
+                if "B1b" in open(path).read():
+                    citing.add(os.path.relpath(path, pkg))
+    assert citing <= {os.path.join("ops", "infer_kernel.py")}, citing
+
+
+def test_epoch_kernel_has_no_float_atomics():
+    """Every sum of csrc/epoch.cu has a fixed order; its only atomics
+    count arrivals on int counters."""
+    src = (_build.CSRC / "epoch.cu").read_text()
+    assert "int* counters;" in src
+    calls = re.findall(r"atomic\w+\(([^,]+),", src)
+    assert calls and all("counter" in arg for arg in calls), calls
+    assert "atomicAdd(a." not in src and "float* counter" not in src
+
+
+def test_epoch_kernel_wrapper_takes_bf16_planes():
+    """The CUDA wrapper's checks (device-independent): delta and error
+    both float32 or both bfloat16; everything else float32."""
+    x = torch.zeros((4, 6))
+    f32 = {"delta": x, "error": x, "zabs": x, "mask": None, "F": x}
+    bf = dict(f32, delta=x.bfloat16(), error=x.bfloat16())
+    cpu = torch.device("cpu")
+    assert epoch_kernel._check_kernel_tensors(f32, cpu) is False
+    assert epoch_kernel._check_kernel_tensors(bf, cpu) is True
+    with pytest.raises(TypeError, match="share a dtype"):
+        epoch_kernel._check_kernel_tensors(dict(f32, delta=x.bfloat16()),
+                                           cpu)
+    with pytest.raises(TypeError, match="F must be"):
+        epoch_kernel._check_kernel_tensors(dict(bf, F=x.bfloat16()), cpu)
+    with pytest.raises(TypeError, match="delta must be"):
+        epoch_kernel._check_kernel_tensors(
+            dict(f32, delta=x.half(), error=x.half()), cpu)
+
+
+@pytest.mark.parametrize("fn", ["qfa_train_epoch", "qfa_step_f32",
+                                "qfa_predict_f32"])
+def test_ctypes_signature_matches_the_c_entry_point(fn):
+    """Each C entry point takes as many parameters as its ctypes
+    signature lists (a missing one shifts every later pointer)."""
+    src = "".join((_build.CSRC / s).read_text()
+                  for s in ("epoch.cu", "step.cu", "predict.cu"))
+    params = re.search(rf"\bint {fn}\(([^)]*)\)", src)[1]
+    argtypes, _ = _build.SIGNATURES[fn]
+    assert len(argtypes) == len(params.split(","))

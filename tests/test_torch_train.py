@@ -116,23 +116,29 @@ TRAIN, VAL = slice(0, N), slice(N, N + 16)
 
 
 def run_both(tmp_path, *, n_epochs, derived=True, data=None, cfg=None,
-             noise="moderate", val=False, **kw):
+             noise="moderate", val=False, bf16_planes=False, **kw):
     """fit_pallas (interpret mode) and fit_fused on the same data, start
-    parameters and permutations; returns ((params, history), ...) of
-    each."""
+    parameters and permutations (with ``bf16_planes``, both train on
+    bfloat16-stored delta and error planes); returns ((params, history),
+    ...) of each."""
     grid, base, p0, mu = make_problem(noise)
     data = base if data is None else data
     cfg = {**CFG, **(cfg or {}), "n_epochs": n_epochs}
     layout = dict(derive_mask=True) if derived else {}
+    jax_train, port_train = (jax_data(data, TRAIN, derived),
+                             port_data(data, TRAIN, derived))
+    if bf16_planes:
+        jax_train = jax_loader.bf16_planes(jax_train)
+        port_train = loader.bf16_planes(port_train)
     ref = fit_pallas(
         qfa_tpu.models.QFAParams(**{k: jnp.asarray(v) for k, v in p0.items()}),
-        jax_data(data, TRAIN, derived), jnp.asarray(mu), JaxTrainConfig(**cfg),
+        jax_train, jnp.asarray(mu), JaxTrainConfig(**cfg),
         key=jax.random.key(KEY), tile_batch=8, interpret=True,
         output_dir=str(tmp_path / "jax"),
         val_data=jax_data(base, VAL, False) if val else None,
         loglam=jax_loglam_row(grid.wav) if derived else None, **layout, **kw)
     port = fit_fused(
-        QFAParams.from_numpy(p0), port_data(data, TRAIN, derived),
+        QFAParams.from_numpy(p0), port_train,
         mu, TrainConfig(**cfg), shuffler=JaxShuffler(KEY), tile_batch=8,
         output_dir=str(tmp_path / "port"),
         logger=logging.getLogger(f"test_torch_train.{tmp_path.name}"),
@@ -178,6 +184,18 @@ def test_fit_fused_matches_fit_pallas(tmp_path, caplog):
     assert h_res == h[4:]
     for k in PARAM_NAMES:
         assert torch.equal(getattr(p_res, k), getattr(p, k)), k
+
+
+def test_fit_fused_matches_fit_pallas_bf16_planes(tmp_path):
+    """TRAIN.BF16_PLANES: both engines train on bfloat16-stored delta and
+    error planes (production layout, bf16 operands), to the tolerances of
+    the float32 planes; the planes stay bfloat16."""
+    (ref_p, ref_h), (p, h) = run_both(tmp_path, n_epochs=4, bf16_planes=True)
+    np.testing.assert_allclose(h, ref_h, rtol=1e-5)
+    assert_params_close(p, ref_p)
+    _, data, _, _ = make_problem()
+    stored = loader.bf16_planes(port_data(data, TRAIN, True))
+    assert stored.delta.dtype == stored.error.dtype == torch.bfloat16
 
 
 def test_fit_fused_rolls_back_nonfinite_epochs(tmp_path, caplog):

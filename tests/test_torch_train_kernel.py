@@ -108,27 +108,30 @@ def layout_args(grid, data, layout, rows=None):
     return data["zabs"][sl], data["mask"][sl], {}
 
 
-def run_jax(grid, p, m, v, data, perm, layout, **kw):
+def run_jax(grid, p, m, v, data, perm, layout, planes="f32", **kw):
     zabs, mask, extra = layout_args(grid, data, layout)
     if layout == "derived":
         extra["loglam"] = jax_loglam_row(grid.wav)
+    dt = jnp.bfloat16 if planes == "bf16" else jnp.float32
     return jax_fused_train_epoch(
         jax_params(p), jax_params(m), jax_params(v),
-        jnp.asarray(data["delta"]), jnp.asarray(data["error"]),
+        jnp.asarray(data["delta"], dt), jnp.asarray(data["error"], dt),
         jnp.asarray(zabs), jnp.asarray(perm),
         None if mask is None else jnp.asarray(mask),
         interpret=True, **extra, **kw)
 
 
-def run_port(grid, p, m, v, data, perm, layout, **kw):
+def run_port(grid, p, m, v, data, perm, layout, planes="f32", **kw):
     zabs, mask, extra = layout_args(grid, data, layout)
     if layout == "derived":
         zabs = zabs[:, :2]  # the port's (N, 2) zq column
         extra["loglam"] = loglam_row(grid.wav)
     t = torch.tensor
+    dt = torch.bfloat16 if planes == "bf16" else torch.float32
     return fused_train_epoch(
         QFAParams.from_numpy(p), QFAParams.from_numpy(m),
-        QFAParams.from_numpy(v), t(data["delta"]), t(data["error"]), t(zabs),
+        QFAParams.from_numpy(v), t(data["delta"]).to(dt),
+        t(data["error"]).to(dt), t(zabs),
         t(np.asarray(perm)), None if mask is None else t(mask), **extra, **kw)
 
 
@@ -154,11 +157,23 @@ CASES = [
     ("plane", 4, True, True, 25, 1),
     ("derived", 4, False, False, 11, 1),
 ]
+# bfloat16 delta and error planes (TRAIN.BF16_PLANES), both layouts, bf16
+# operands off and on: both packages convert the planes at load
+BF16_PLANE_CASES = [
+    ("plane", 4, True, False, 0, 1),
+    ("plane", 8, True, True, 3, 1),
+    ("derived", 4, True, False, 0, 1),
+    ("derived", 8, False, True, 8, 2),
+]
 
 
-@pytest.mark.parametrize("layout,nh,refnorm,mxu,epoch,n_epochs", CASES)
+@pytest.mark.parametrize(
+    "layout,nh,refnorm,mxu,epoch,n_epochs,planes",
+    [pytest.param(*c, "f32", id="-".join(map(str, c))) for c in CASES]
+    + [pytest.param(*c, "bf16", id="-".join(map(str, c)) + "-bf16planes")
+       for c in BF16_PLANE_CASES])
 def test_plain_epoch_matches_jax_kernel(layout, nh, refnorm, mxu, epoch,
-                                        n_epochs):
+                                        n_epochs, planes):
     grid, p0, data = make_problem(nh)
     m0 = zero_moments(p0)
     perm = np.stack([np.random.default_rng(e).permutation(N // TB)
@@ -166,8 +181,8 @@ def test_plain_epoch_matches_jax_kernel(layout, nh, refnorm, mxu, epoch,
     kw = dict(epoch=epoch, n_batches=2, n_epochs=n_epochs, tile_batch=TB,
               learning_rate=1e-2, weight_decay=0.01, reference_norm=refnorm,
               mxu_bf16=mxu)
-    ref = run_jax(grid, p0, m0, m0, data, perm, layout, **kw)
-    port = run_port(grid, p0, m0, m0, data, perm, layout, **kw)
+    ref = run_jax(grid, p0, m0, m0, data, perm, layout, planes, **kw)
+    port = run_port(grid, p0, m0, m0, data, perm, layout, planes, **kw)
     assert port.loss_sums.shape == ((n_epochs, 2) if n_epochs > 1 else (2,))
     assert epoch_kernel.LAUNCHES == 0  # CPU tensors never launch
     assert_epoch_close(port, ref)

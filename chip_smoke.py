@@ -12,14 +12,23 @@ made from a seed:
    (``nvidia-smi``); turns TF32 off for matmuls and cuDNN, so the plain
    torch version runs in full fp32;
 2. build: compiles the CUDA kernels from ``qfa_tpu_torch/csrc`` with nvcc;
+   prints each kernel's registers and spills, and per nh the prediction
+   kernel's registers, spills, dynamic shared memory and resident blocks
+   per SM in both of its modes;
 3. kernel against its plain version on the same CUDA tensors, within the
    tolerances of the CPU parity tests, at SDSS width (4096 spectra) and
    DESI width (Npix 9243, Nb 2238; 512 spectra), in each mode of the path;
+   every nh 1-10 at SDSS (512 spectra) and DESI width (128); n = 1 and
+   n = 301 (a part tile); and, bitwise, a second launch on the same input
+   and rows 0-63 and row 1000 predicted alone against the 4096 batch;
 4. main path: ``qfa_tpu_torch.cli.main(["--type", "predict", ...])`` on
    2048 spectra written to disk, checked against the plain path on the
    CPU;
 5. serving: ``QFAPredictor(device="cuda")`` behind its HTTP server;
-6. times of the kernel and the plain version over 65536 spectra;
+6. times of the kernel and the plain version at 65536 spectra (a survey
+   sweep), 8192 (the predict CLI's chunk), 64 (serving's max_batch) and 1,
+   full output and stats_only, each with its GB/s and its share of its
+   bound;
 7. the epoch kernel against its plain version on the same CUDA tensors:
    SDSS width (4096 spectra, batch 512, 2 epochs) and DESI width (512
    spectra, 1 epoch), derived and plane layouts, and the training CLI's
@@ -233,14 +242,14 @@ def uniform(g, shape, lo, hi):
     return lo + (hi - lo) * torch.rand(shape, generator=g)
 
 
-def seeded_params(grid, device, regime="moderate"):
+def seeded_params(grid, device, regime="moderate", nh=NH):
     """Parameters inside ParamBounds and a mean continuum, from a seed."""
     from qfa_tpu_torch.models.params import ParamBounds, QFAParams
 
     r, b = REGIMES[regime], ParamBounds()
     g = torch.Generator().manual_seed(SEED)
     params = QFAParams(
-        F=uniform(g, (grid.npix, NH), -0.5, 0.5),
+        F=uniform(g, (grid.npix, nh), -0.5, 0.5),
         Psi=uniform(g, (grid.npix,), *r["psi"]),
         omega=uniform(g, (grid.nb,), *r["omega"]),
         tau0=torch.tensor(0.12), c0=torch.tensor(0.2), beta=torch.tensor(2.4),
@@ -272,7 +281,7 @@ def draw_spectra(params, mu, grid, n, seed, regime="moderate", mask_frac=0.1):
     zq = 2.0 + 1.5 * torch.rand(n, generator=g, device=dev)
     blue = torch.tensor(grid.blue, dtype=torch.float32, device=dev)
     zabs = (1.0 + zq)[:, None] * blue / LYA_WAVELENGTH - 1.0
-    h = torch.randn(n, NH, generator=g, device=dev)
+    h = torch.randn(n, params.F.shape[1], generator=g, device=dev)
     cont = mu + h @ params.F.T
     amp = absorption(zabs, grid.nr)
     zdep = omega_func(zabs, params.tau0, params.beta, params.c0)
@@ -314,52 +323,151 @@ def compare(name, got, want, tol):
     return worst, detail
 
 
-def phase_kernel_vs_plain(device):
-    from qfa_tpu_torch.data.grid import make_grid
+def predict_modes(grid, zabs, mask, zq, device):
+    """The two modes of the prediction path: (name, args, kwargs)."""
     from qfa_tpu_torch.ops.common import loglam_row, zq_column
+
+    return (("mask plane + zabs plane", (zabs, mask), {}),
+            ("derived mask + zq column", (zq_column(zq), None),
+             dict(loglam=loglam_row(grid.wav, device=device),
+                  derive_zabs=True)))
+
+
+def predict_problem(grid_kw, n, device, regime="moderate", nh=NH):
+    """Grid, seeded parameters and n drawn spectra (rows 0, 17 and n - 1
+    fully masked, where they exist) on the device."""
+    from qfa_tpu_torch.data.grid import make_grid
+
+    grid = make_grid(**grid_kw)
+    params, mu = seeded_params(grid, device, regime, nh)
+    flux, error, mask, zq = draw_spectra(params, mu, grid, n, SEED + n,
+                                         regime)
+    mask[[r for r in (0, 17, n - 1) if r < n]] = 0.0
+    flux, error = flux * mask, error * mask
+    zabs = torch.tensor(grid.zabs(zq.cpu().numpy()), dtype=torch.float32,
+                        device=device)
+    return grid, params, mu, (flux, error), predict_modes(grid, zabs, mask,
+                                                          zq, device)
+
+
+def rows_of(out, rows):
+    return type(out)(*(None if t is None else t[rows] for t in out))
+
+
+def check_bitwise(name, got, want):
+    for field in got._fields:
+        a, b = getattr(got, field), getattr(want, field)
+        check((a is None and b is None) or torch.equal(a, b),
+              f"{name}: {field} differs bitwise")
+
+
+def phase_kernel_vs_plain(device):
     from qfa_tpu_torch.ops.infer_kernel import fused_predict, fused_predict_plain
 
     worst = 0.0
+
+    def held(name, params, mu, planes, args, kw, tol=TOL, stats_only=False,
+             n_label=None):
+        nonlocal worst
+        got = fused_predict(params, mu, *planes, *args,
+                            stats_only=stats_only, **kw)
+        torch.cuda.synchronize()
+        want = fused_predict_plain(params, mu, *planes, *args,
+                                   stats_only=stats_only, **kw)
+        torch.cuda.synchronize()
+        err, detail = compare(name, got, want, tol)
+        worst = max(worst, err)
+        n = planes[0].shape[0]
+        say(f"  {name}: n={n} npix={planes[0].shape[1]} ll in "
+            f"[{float(got.ll.min()):.1f}, {float(got.ll.max()):.1f}]; "
+            f"max_abs_err={err!r}; max rel err {detail}")
+        return got
+
     cases = (("SDSS", SDSS, 4096, "moderate"), ("DESI", DESI, 512, "moderate"),
              ("SDSS", SDSS, 4096, "low-noise"))
     for label, grid_kw, n, regime in cases:
-        grid = make_grid(**grid_kw)
-        params, mu = seeded_params(grid, device, regime)
-        flux, error, mask, zq = draw_spectra(params, mu, grid, n, SEED + n,
-                                             regime)
-        mask[[0, 17, n - 1]] = 0.0  # fully masked rows
-        flux, error = flux * mask, error * mask
-        zabs = torch.tensor(grid.zabs(zq.cpu().numpy()), dtype=torch.float32,
-                            device=device)
+        grid, params, mu, planes, modes = predict_problem(grid_kw, n, device,
+                                                          regime)
         tol = dict(TOL)
         if regime == "low-noise":
             tol["ll"] = dict(rtol=LOW_NOISE_LL_RTOL, atol=0.0)
-        modes = {
-            "mask plane + zabs plane": ((zabs, mask), {}),
-            "derived mask + zq column": (
-                (zq_column(zq), None),
-                dict(loglam=loglam_row(grid.wav, device=device),
-                     derive_zabs=True)),
-        }
-        for mode, (args, kw) in modes.items():
+        for mode, args, kw in modes:
             for stats_only in (False, True):
-                got = fused_predict(params, mu, flux, error, *args,
-                                    stats_only=stats_only, **kw)
-                torch.cuda.synchronize()
-                want = fused_predict_plain(params, mu, flux, error, *args,
-                                           stats_only=stats_only, **kw)
-                torch.cuda.synchronize()
                 name = (f"{label} {regime} {mode}"
                         f"{' stats_only' if stats_only else ''}")
-                err, detail = compare(name, got, want, tol)
+                got = held(name, params, mu, planes, args, kw, tol,
+                           stats_only)
                 check(float(got.ll[0]) == 0.0 and float(got.n_obs[0]) == 0.0,
                       f"{name}: fully masked row is not inert")
-                worst = max(worst, err)
-                say(f"  {name}: n={n} npix={grid.npix} ll in "
-                    f"[{float(got.ll[1:].min()):.1f}, "
-                    f"{float(got.ll.max()):.1f}]; max_abs_err={err!r}; "
-                    f"max rel err {detail}")
+            if (label, regime) != ("SDSS", "moderate"):
+                continue
+            # bitwise: a second launch, and rows 0-63 and row 1000 alone
+            batch = fused_predict(params, mu, *planes, *args, **kw)
+            again = fused_predict(params, mu, *planes, *args, **kw)
+            check_bitwise(f"{label} {mode}: second launch", again, batch)
+            for rows in (slice(0, 64), slice(1000, 1001)):
+                sub = [None if t is None else t[rows].contiguous()
+                       for t in args]
+                alone = fused_predict(params, mu, *(t[rows].contiguous()
+                                                    for t in planes),
+                                      *sub, **kw)
+                check_bitwise(f"{label} {mode}: rows {rows.start}-"
+                              f"{rows.stop - 1} alone", alone,
+                              rows_of(batch, rows))
+            say(f"  {label} {mode}: a second launch, rows 0-63 alone and row "
+                "1000 alone equal the 4096 batch bitwise")
+    # every instantiated nh at both widths (modes in turn), n = 1 and a
+    # ragged n
+    for label, grid_kw, n in (("SDSS", SDSS, 512), ("DESI", DESI, 128)):
+        for nh in range(1, 11):
+            grid, params, mu, planes, modes = predict_problem(
+                grid_kw, n, device, nh=nh)
+            mode, args, kw = modes[nh % 2]
+            held(f"{label} nh={nh} {mode}", params, mu, planes, args, kw)
+    grid, params, mu, planes, modes = predict_problem(SDSS, 302, device)
+    for n in (1, 301):  # rows 1.. (row 0 is fully masked)
+        for mode, args, kw in modes:
+            sub = [None if t is None else t[1:1 + n].contiguous()
+                   for t in args]
+            held(f"SDSS n={n} {mode}", params, mu,
+                 [t[1:1 + n].contiguous() for t in planes], sub, kw)
     return worst
+
+
+def predict_build_report(lib, log):
+    """{nh: registers, spill stores/loads (ptxas -v) and, in each mode,
+    dynamic shared memory per block and resident blocks per SM} of the
+    prediction kernel; fails if a mode of an nh cannot launch."""
+    import ctypes
+
+    report, nh = {}, None
+    for line in log.splitlines():
+        name = re.search(r"Compiling entry function '(\w+)'", line)
+        if name:
+            m = re.search(r"predict_kernelILi(\d+)EE", name[1])
+            nh = int(m[1]) if m else None
+            if nh is not None:
+                report[nh] = {"registers": None, "spill": None}
+        elif nh is not None and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill", line)
+            report[nh]["spill"] = f"{st}/{ld}"
+        elif nh is not None and "registers" in line:
+            report[nh]["registers"] = int(re.search(r"(\d+) registers",
+                                                    line)[1])
+    check(sorted(report) == list(range(1, 11)),
+          f"ptxas reported predict_kernel for nh {sorted(report)}")
+    for nh, r in report.items():
+        r["modes"] = {}
+        for mode, dm, dz in (("derived mask + zq column", 1, 1),
+                             ("mask plane + zabs plane", 0, 0)):
+            b, k = ctypes.c_int(), ctypes.c_int()
+            rc = lib.qfa_predict_occupancy(nh, dm, dz, 0, ctypes.byref(b),
+                                           ctypes.byref(k))
+            check(rc == 0 and k.value >= 1,
+                  f"predict_kernel nh={nh} {mode}: occupancy rc {rc}, "
+                  f"{k.value} blocks per SM at {b.value} B")
+            r["modes"][mode] = (b.value, k.value)
+    return report
 
 
 def write_survey(root, params, mu, grid, n):
@@ -516,33 +624,57 @@ def time_cuda(fn, reps):
     return statistics.median(times)
 
 
-def phase_times(device, n=65536, reps=5):
+#: phase 6's sizes: a survey sweep, the CLI's chunk (infer/predict.py),
+#: serving's max_batch and a single spectrum
+PREDICT_SIZES = (65536, 8192, 64, 1)
+#: kernel calls under torch.profiler per size (device time per launch)
+PROFILED_CALLS = 5
+
+
+def phase_times(device, reps=5):
+    """Kernel and plain times of the derived layout (the CLI's) at each of
+    PREDICT_SIZES, full output and stats_only: {(n, stats_only): {...}}."""
     from qfa_tpu_torch.data.grid import make_grid
     from qfa_tpu_torch.ops.common import loglam_row, zq_column
     from qfa_tpu_torch.ops.infer_kernel import fused_predict, fused_predict_plain
 
     grid = make_grid(**SDSS)
     params, mu = seeded_params(grid, device)
-    flux, error, mask, zq = draw_spectra(params, mu, grid, n, SEED + 3)
+    flux, error, mask, zq = draw_spectra(params, mu, grid, PREDICT_SIZES[0],
+                                         SEED + 3)
     flux, error = flux * mask, error * mask
-    args = (params, mu, flux, error, zq_column(zq))
+    zqc = zq_column(zq)
     kw = dict(loglam=loglam_row(grid.wav, device=device), derive_zabs=True)
     out = {}
-    for stats_only in (False, True):
-        runs = {
-            "kernel": lambda: fused_predict(*args, stats_only=stats_only, **kw),
-            "plain": lambda: fused_predict_plain(*args, stats_only=stats_only,
-                                                 **kw),
-        }
-        for fn in runs.values():  # warm-up
-            fn()
-        torch.cuda.synchronize()
-        samples = {"kernel": [], "plain": []}
-        for order in (("plain", "kernel"), ("kernel", "plain")):
-            for which in order:
-                samples[which].append(time_cuda(runs[which], reps))
-        out[stats_only] = {k: statistics.median(v) for k, v in samples.items()}
-    return out, n
+    for n in PREDICT_SIZES:
+        args = (params, mu, flux[:n].contiguous(), error[:n].contiguous(),
+                zqc[:n].contiguous())
+        for stats_only in (False, True):
+            runs = {
+                "kernel": lambda: fused_predict(*args, stats_only=stats_only,
+                                                **kw),
+                "plain": lambda: fused_predict_plain(
+                    *args, stats_only=stats_only, **kw),
+            }
+            for fn in runs.values():  # warm-up
+                fn()
+            torch.cuda.synchronize()
+            samples = {"kernel": [], "plain": []}
+            for order in (("plain", "kernel"), ("kernel", "plain")):
+                for which in order:
+                    samples[which].append(time_cuda(runs[which], reps))
+            t = {k: statistics.median(v) for k, v in samples.items()}
+            t["bound"] = predict_bound(grid, n, stats_only)
+            # the kernel's own span, without the wrapper's host time that
+            # a lone call's CUDA events also hold at small n
+            _, by_name, _, _, counts = profile_run(
+                lambda: [runs["kernel"]() for _ in range(PROFILED_CALLS)])
+            spans = {k: v for k, v in (by_name or {}).items()
+                     if "predict_kernel" in k}
+            t["device"] = None if not spans else \
+                sum(spans.values()) * 1e3 / sum(counts[k] for k in spans)
+            out[n, stats_only] = t
+    return out
 
 
 def train_problem(grid, params, mu, n, seed, regime="moderate"):
@@ -1471,21 +1603,31 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bounds(grid, n_pred, n_epoch, n_batches, tile, batch):
-    """bound_ms of each kernel at the shapes it was timed at: every input
-    read once and every output written once, and the FMAs of its products
-    (2 operations each; the exp/log/pow chain is not counted). Per (row,
-    pixel): predict K triangle + W, continuum + std (2 ntri + 2 nh);
-    epoch and step forward K + W, backward dw, du, dG, dF (3 (ntri + nh))."""
+def predict_bound(grid, n, stats_only=False):
+    """(ms, "bytes" or "operations", bytes) of the prediction kernel on n
+    spectra in the derived layout: flux, error, zq column, loglam, mu and
+    the params in; ll, n_obs, hmean, hcov (and continuum and std) out; the
+    FMAs of K triangle + W (and continuum + std), 2 operations each."""
+    npix, nb = grid.npix, grid.nb
+    ntri = NH * (NH + 1) // 2
+    params = 4 * (npix * NH + npix + nb + 3)
+    planes = 0 if stats_only else 2
+    n_bytes = (4 * (2 * n * npix + 2 * n + 2 * npix) + params
+               + 4 * n * (2 + NH + NH * NH + planes * npix))
+    flops = 2 * (ntri + NH) * (1 if stats_only else 2) * n * npix
+    return (*bound(n_bytes, flops), n_bytes)
+
+
+def bounds(grid, n_epoch, n_batches, tile, batch):
+    """bound_ms of the training kernels at the shapes they were timed at:
+    every input read once and every output written once, and the FMAs of
+    their products (2 operations each; the exp/log/pow chain is not
+    counted). Per (row, pixel): forward K + W, backward dw, du, dG, dF
+    (3 (ntri + nh))."""
     npix, nb = grid.npix, grid.nb
     ntri = NH * (NH + 1) // 2
     params = 4 * (npix * NH + npix + nb + 3)
     rows = n_batches * 500  # phase 9's padded dataset (batch 500)
-    # predict: flux, error, zq column, loglam, mu, params in; ll, n_obs,
-    # hmean, hcov, continuum, std out
-    pred = bound(4 * (2 * n_pred * npix + 2 * n_pred + 2 * npix) + params
-                 + 4 * n_pred * (2 + NH + NH * NH + 2 * npix),
-                 2 * (2 * ntri + 2 * NH) * n_pred * npix)
     # epoch: delta, error, zq column, loglam, tile permutation, params and
     # both moments in and out, loss sums and n_real out
     ep = bound(4 * (2 * rows * npix + 2 * rows + npix) + 4 * (rows // tile)
@@ -1495,7 +1637,7 @@ def bounds(grid, n_pred, n_epoch, n_batches, tile, batch):
                       batch.weight) + params
                + 4 * (npix * NH + npix + nb + npix + 5),
                2 * 3 * (ntri + NH) * batch.delta.shape[0] * npix)
-    return pred, ep, st
+    return ep, st
 
 
 def main(argv=None):
@@ -1540,9 +1682,17 @@ def main(argv=None):
         name = re.search(r"Compiling entry function '(\w+)'", line)
         if name:
             kernel = name[1]
+        elif "predict_kernel" in kernel:
+            continue  # reported per nh below
         elif "registers" in line or ("spill" in line
                                      and " 0 bytes spill" not in line):
             say(f"  {kernel}: {line.strip()}")
+    for nh, r in predict_build_report(_build.load_library(),
+                                      _build.build_log()).items():
+        say(f"  predict_kernel nh={nh}: {r['registers']} registers, "
+            f"{r['spill']} spill stores/loads (bytes); dynamic shared memory"
+            " and resident blocks per SM: " + ", ".join(
+                f"{m} {b} B, {k}" for m, (b, k) in r["modes"].items()))
 
     grid = make_grid(**SDSS)
     if want(3):
@@ -1575,14 +1725,22 @@ def main(argv=None):
         check(epoch_kernel.LAUNCHES == 0 and fused_step.LAUNCHES == 0,
               "the predict path launched a training kernel")
     if want(6):
-        times, n_pred = phase_times(device)
-        for stats_only, t in times.items():
+        times = phase_times(device)
+        for (n, stats_only), t in times.items():
             mode = "stats_only" if stats_only else "full output"
-            say(f"phase 6 times ({smi}), SDSS width, {n_pred} spectra, "
-                f"{mode}: kernel {t['kernel']!r} ms "
-                f"({n_pred / t['kernel'] * 1e3:.0f} spectra/s), plain "
-                f"{t['plain']!r} ms ({n_pred / t['plain'] * 1e3:.0f} "
-                "spectra/s)")
+            b_ms, b_by, b_bytes = t["bound"]
+            dev = "device time not measured (torch.profiler saw no " \
+                "kernel)" if t["device"] is None else (
+                    f"device {t['device']!r} ms per launch (torch.profiler,"
+                    f" {b_bytes / t['device'] / 1e6:.1f} GB/s, "
+                    f"{b_ms / t['device']:.3f} of its bound)")
+            say(f"phase 6 times ({smi}), SDSS width, derived layout, {n} "
+                f"spectra, {mode}: kernel {t['kernel']!r} ms per call "
+                f"(CUDA events; {n / t['kernel'] * 1e3:.0f} spectra/s, "
+                f"{b_bytes / t['kernel'] / 1e6:.1f} GB/s, "
+                f"{b_ms / t['kernel']:.3f} of its bound {b_ms:.4f} ms by "
+                f"{b_by}); {dev}; plain {t['plain']!r} ms "
+                f"({n / t['plain'] * 1e3:.0f} spectra/s)")
 
     if want(7):
         say("phase 7 epoch kernel vs plain version on the card:")
@@ -1707,7 +1865,8 @@ def main(argv=None):
         say(f"partial run of phases 1, 2 and {sorted(only)}: no kernels "
             "line, no result")
         return 0
-    b_pred, b_epoch, b_step = bounds(grid, n_pred, tn, n_batches, tb, step_b)
+    b_epoch, b_step = bounds(grid, tn, n_batches, tb, step_b)
+    t_pred = times[PREDICT_SIZES[0], False]
 
     def entry(name, src, replaces, launches, err, ms, plain_ms, bnd,
               library_ms=None):
@@ -1720,7 +1879,7 @@ def main(argv=None):
     say(json.dumps({"kernels": [
         entry("predict_kernel", "qfa_tpu_torch/csrc/predict.cu",
               "qfa_tpu/ops/infer_kernel.py:90", main_launches, worst,
-              times[False]["kernel"], times[False]["plain"], b_pred),
+              t_pred["kernel"], t_pred["plain"], t_pred["bound"][:2]),
         entry("epoch_kernel", "qfa_tpu_torch/csrc/epoch.cu",
               "qfa_tpu/ops/epoch_kernel.py:237", train_launches, train_worst,
               ttimes["bf16 operands"]["kernel"],

@@ -140,11 +140,11 @@ __device__ __forceinline__ void solve_upper_rdiag(const float (&L)[NH][NH],
   }
 }
 
+// Column b of L^-1: the forward solve of L y = e_b, y_i = 0 for i < b.
 template <int NH>
-__device__ __forceinline__ void kinv_column_rdiag(const float (&L)[NH][NH],
+__device__ __forceinline__ void linv_column_rdiag(const float (&L)[NH][NH],
                                                   const float (&rd)[NH],
-                                                  int b, float* x) {
-  float y[NH];
+                                                  int b, float* y) {
 #pragma unroll
   for (int i = 0; i < NH; ++i) {
     float s = 0.0f;
@@ -154,6 +154,14 @@ __device__ __forceinline__ void kinv_column_rdiag(const float (&L)[NH][NH],
     }
     y[i] = i < b ? 0.0f : (i == b ? rd[i] : s * rd[i]);
   }
+}
+
+template <int NH>
+__device__ __forceinline__ void kinv_column_rdiag(const float (&L)[NH][NH],
+                                                  const float (&rd)[NH],
+                                                  int b, float* x) {
+  float y[NH];
+  linv_column_rdiag<NH>(L, rd, b, y);
   solve_upper_rdiag<NH>(L, rd, y, x);
 }
 

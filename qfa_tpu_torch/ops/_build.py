@@ -27,7 +27,8 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_library", "build_log", "load_library"]
+__all__ = ["NVCC_FLAGS", "build_library", "build_log", "device_and_stream",
+           "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -62,6 +63,11 @@ SIGNATURES = {
             _P, _P, _P, _P, _P, _P,  # ll, n_obs, hmean, hcov, cont, std
             _I, _P,  # device, stream
         ],
+        ctypes.c_int,
+    ),
+    "qfa_predict_occupancy": (
+        [_I, _I, _I, _I, _P, _P],  # nh, derive_mask, derive_zabs, device,
+        # smem bytes, blocks per SM (int outputs)
         ctypes.c_int,
     ),
     "qfa_train_epoch": (
@@ -208,3 +214,12 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = restype
             _LIB = lib
         return _LIB
+
+
+def device_and_stream(dev) -> tuple[int, int]:
+    """(device index, raw handle of its current stream) of a CUDA device,
+    as the entry points take them."""
+    import torch
+
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(dev).cuda_stream

@@ -429,17 +429,11 @@ def _check_kernel_tensors(tensors: dict, dev) -> bool:
     return planes == {torch.bfloat16}
 
 
-def _device_and_stream(dev) -> tuple[int, int]:
-    """(device index, raw handle of its current stream)."""
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return index, torch.cuda.current_stream(dev).cuda_stream
-
-
 def _launch(params, m, v, delta, error, zabs, mask, loglam, geo, *, epoch,
             n_batches, n_epochs, derive_zabs, learning_rate, weight_decay,
             decay_alpha, decay_step, b1, b2, eps, bounds, law,
             reference_norm, mxu_bf16) -> EpochOutputs:
-    from ._build import load_library
+    from ._build import device_and_stream, load_library
 
     dev = delta.device
     if geo.nh < 1 or geo.nh > MAX_NH:
@@ -496,7 +490,7 @@ def _launch(params, m, v, delta, error, zabs, mask, loglam, geo, *, epoch,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    index, stream = _device_and_stream(dev)
+    index, stream = device_and_stream(dev)
     rc = lib.qfa_train_epoch(
         ptr(delta), ptr(error), int(planes_bf16), ptr(zabs), zabs.shape[1],
         ptr(mask), ptr(tensors["loglam"]), ptr(perm),

@@ -193,7 +193,7 @@ def fused_predict_plain(
 
 def _launch(params, mu, flux, error, zabs, mask, *, law, stats_only, loglam,
             derive_zabs, out_dtype) -> FusedPredictOutputs:
-    from ._build import load_library
+    from ._build import device_and_stream, load_library
 
     dev = flux.device
     if out_dtype != torch.float32:
@@ -238,18 +238,16 @@ def _launch(params, mu, flux, error, zabs, mask, *, law, stats_only, loglam,
         return None if t is None else t.data_ptr()
 
     lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.qfa_predict_f32(
-            ptr(flux), ptr(error), ptr(zabs), zabs.shape[1], ptr(mask),
-            ptr(mu), ptr(params.F), ptr(params.Psi), ptr(params.omega),
-            ptr(tensors["loglam"]),
-            ptr(params.tau0), ptr(params.c0), ptr(params.beta),
-            *law, n, npix, nb, nh, int(mask is None), int(derive_zabs),
-            ptr(ll), ptr(n_obs), ptr(hmean), ptr(hcov), ptr(cont), ptr(std),
-            dev.index if dev.index is not None else torch.cuda.current_device(),
-            stream,
-        )
+    index, stream = device_and_stream(dev)
+    rc = lib.qfa_predict_f32(
+        ptr(flux), ptr(error), ptr(zabs), zabs.shape[1], ptr(mask),
+        ptr(mu), ptr(params.F), ptr(params.Psi), ptr(params.omega),
+        ptr(tensors["loglam"]),
+        ptr(params.tau0), ptr(params.c0), ptr(params.beta),
+        *law, n, npix, nb, nh, int(mask is None), int(derive_zabs),
+        ptr(ll), ptr(n_obs), ptr(hmean), ptr(hcov), ptr(cont), ptr(std),
+        index, stream,
+    )
     if rc != 0:
         raise RuntimeError(
             f"CUDA prediction kernel launch failed: error {rc} "

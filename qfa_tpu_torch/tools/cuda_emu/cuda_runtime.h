@@ -1,17 +1,23 @@
 // CPU stand-in for the parts of the CUDA runtime and device language that
-// qfa_tpu_torch/csrc/epoch.cu uses, so that g++ compiles the kernel source
-// itself for the CPU (qfa_tpu_torch/tools/emulate.py). One std::thread per
-// CUDA thread; the blocks of a launch run one after another, so
-// __shared__ becomes a static shared by the block's threads;
+// qfa_tpu_torch/csrc/epoch.cu and predict.cu use, so that g++ compiles the
+// kernel sources themselves for the CPU (qfa_tpu_torch/tools/emulate.py).
+// One std::thread per CUDA thread; the blocks of a launch run one after
+// another, so __shared__ becomes a static shared by the block's threads;
 // __syncthreads is a barrier of the block, a warp shuffle two barriers of
-// its warp. Nothing here models a resource limit (registers, shared
-// memory, block residency).
+// its warp. Dynamic shared memory is filled with NaN before each block,
+// and an asynchronous copy (cp.async) lands only when its thread waits for
+// its group, so a read of a stage before its wait and barrier sees NaN or
+// stale data. Nothing here models a resource limit (registers, shared
+// memory, block residency): the occupancy query answers 1 block on each
+// of 2 SMs, so a persistent grid walks several tiles per block.
 #pragma once
 #include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstring>
+#include <deque>
+#include <limits>
 #include <thread>
 #include <vector>
 #define __global__
@@ -27,7 +33,11 @@ inline uint3s blockIdx, gridDim, blockDim;
 struct float4 { float x, y, z, w; };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 typedef int cudaError_t;
-const int cudaSuccess = 0, cudaErrorInvalidValue = 1;
+const int cudaSuccess = 0, cudaErrorInvalidValue = 1,
+          cudaErrorInvalidConfiguration = 9;
+inline const char* cudaGetErrorString(cudaError_t e) {
+  return e == 0 ? "no error" : "emulated CUDA error";
+}
 typedef void* cudaStream_t;
 inline cudaError_t cudaSetDevice(int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
@@ -42,6 +52,13 @@ inline float __shfl_down_sync(unsigned, float x, int o) {
   emu_warp_sync();
   const unsigned lane = threadIdx.x & 31;
   float y = lane + o < 32 ? g_slot[threadIdx.x + o] : x;
+  emu_warp_sync();
+  return y;
+}
+inline float __shfl_xor_sync(unsigned, float x, int o) {
+  g_slot[threadIdx.x] = x;
+  emu_warp_sync();
+  float y = g_slot[threadIdx.x ^ o];
   emu_warp_sync();
   return y;
 }
@@ -62,13 +79,37 @@ inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_S
 template <class T> inline T __ldcg(const T* p) { return *p; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
+// dynamic shared memory of the running block
+inline std::vector<float> g_dyn_smem;
+inline float* emu_dynamic_smem() { return g_dyn_smem.data(); }
+// cp.async: a thread's copies queue in its open group; commit closes the
+// group; wait(n) performs the thread's oldest groups until n are left
+struct EmuCopy { void* dst; const void* src; int bytes; };
+inline thread_local std::vector<EmuCopy> g_open_group;
+inline thread_local std::deque<std::vector<EmuCopy>> g_groups;
+inline void emu_cp_async(void* dst, const void* src, int bytes) {
+  g_open_group.push_back({dst, src, bytes});
+}
+inline void emu_cp_async_commit() {
+  g_groups.push_back(std::move(g_open_group));
+  g_open_group.clear();
+}
+inline void emu_cp_async_wait(int n) {
+  while (static_cast<int>(g_groups.size()) > n) {
+    for (const EmuCopy& c : g_groups.front()) std::memcpy(c.dst, c.src, c.bytes);
+    g_groups.pop_front();
+  }
+}
 template <class Fn>
-void emu_launch(dim3 g, dim3 b, Fn fn) {
+void emu_launch(dim3 g, dim3 b, Fn fn, size_t smem_bytes = 0) {
   gridDim.x = g.x; gridDim.y = g.y; gridDim.z = 1;
   blockDim.x = b.x;
   for (unsigned y = 0; y < g.y; ++y)
     for (unsigned x = 0; x < g.x; ++x) {
       blockIdx.x = x; blockIdx.y = y;
+      g_dyn_smem.assign(smem_bytes / sizeof(float),
+                        std::numeric_limits<float>::quiet_NaN());
       std::barrier<> bar(b.x);
       g_bar = &bar;
       std::vector<std::barrier<>*> wbars;
@@ -93,7 +134,20 @@ struct cudaLaunchAttribute { cudaLaunchAttributeID id; cudaLaunchAttributeValue 
 struct cudaLaunchConfig_t { dim3 gridDim, blockDim; size_t dynamicSmemBytes; cudaStream_t stream; cudaLaunchAttribute* attrs; unsigned numAttrs; };
 template <class... KA, class... A>
 int cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(KA...), A... a) {
-  emu_launch(c->gridDim, c->blockDim, [&] { k(a...); });
+  emu_launch(c->gridDim, c->blockDim, [&] { k(a...); }, c->dynamicSmemBytes);
+  return 0;
+}
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class K>
+cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 1;
+  return 0;
+}
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;
   return 0;
 }
 // every warp of the block reaches the same __syncwarp calls, so a block

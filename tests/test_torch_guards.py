@@ -369,6 +369,15 @@ def test_epoch_kernel_has_no_float_atomics():
     assert "atomicAdd(a." not in src and "float* counter" not in src
 
 
+def test_predict_kernel_has_no_float_atomics():
+    """Every sum of csrc/predict.cu has a fixed order (per-lane pixel
+    sums, then one xor butterfly), so a row's outputs never depend on
+    its neighbours or the run."""
+    src = (_build.CSRC / "predict.cu").read_text()
+    assert "__shfl_xor_sync" in src
+    assert not re.findall(r"atomic\w*\(", src)
+
+
 def test_epoch_kernel_wrapper_takes_bf16_planes():
     """The CUDA wrapper's checks (device-independent): delta and error
     both float32 or both bfloat16; everything else float32."""
@@ -389,7 +398,7 @@ def test_epoch_kernel_wrapper_takes_bf16_planes():
 
 
 @pytest.mark.parametrize("fn", ["qfa_train_epoch", "qfa_step_f32",
-                                "qfa_predict_f32"])
+                                "qfa_predict_f32", "qfa_predict_occupancy"])
 def test_ctypes_signature_matches_the_c_entry_point(fn):
     """Each C entry point takes as many parameters as its ctypes
     signature lists (a missing one shifts every later pointer)."""

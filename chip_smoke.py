@@ -54,7 +54,9 @@ made from a seed:
 10. the step kernel against its plain version on the same CUDA tensors:
     SDSS width at batch 500 with 116 weight-0 rows duplicating row 0 (the
     stream's tail batch of 384 real rows), DESI width at batch 128, each
-    tau law at batch 64, moderate and low-noise data;
+    tau law at batch 64, moderate and low-noise data, and every nh 1-10 at
+    batch 24 (19 real rows); in each case a second call bitwise equal to
+    the first;
 11. the streaming main path: ``fit_streaming(step_fn=make_fused_step_fn(
     cfg), device="cuda")`` over 16384 SDSS spectra in host RAM, batch 500,
     2 epochs, checkpoints and smoothing every epoch, 512 held-out
@@ -63,7 +65,11 @@ made from a seed:
 12. times: one step at batch 500 (kernel, plain version, autograd
     ``loss_and_grads``), the whole fused step function, and one streaming
     epoch of 16384 spectra (wall, H2D copy and device busy share by
-    ``torch.profiler``, spectra/s);
+    ``torch.profiler``, spectra/s); the step's three kernels each launched
+    alone: device time per launch by ``torch.profiler`` against the call
+    time; with the early launch, the device's busy time and the wrapper's
+    host time per call; the kernels' registers, spills and shared memory
+    at nh 8;
 13. the card's calibration: the alu_chain kernel against its plain
     version for each op (fma, exp, log, div) at n_iters 0, 1 and 3 over the
     (256, 1024) tile, one launch of each at the fma calibration's larger
@@ -468,6 +474,28 @@ def predict_build_report(lib, log):
                   f"{k.value} blocks per SM at {b.value} B")
             r["modes"][mode] = (b.value, k.value)
     return report
+
+
+def step_build_report(log, nh=NH):
+    """{kernel: (registers, spill stores/loads, static shared memory bytes)}
+    of step.cu's kernels at nh from ptxas -v, in launch order."""
+    report, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            m = re.search(rf"(forward|backward|finish)_kernelILi{nh}E\w*"
+                          "StepArgs", entry[1])
+            name = f"{m[1]}_kernel" if m else None
+            if name:
+                report[name] = [None, None, None]
+        elif name and "spill stores" in line:
+            report[name][1] = "/".join(re.findall(r"(\d+) bytes spill", line))
+        elif name and "registers" in line:
+            report[name][0] = int(re.search(r"(\d+) registers", line)[1])
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[name][2] = int(smem[1]) if smem else 0
+    order = ("forward_kernel", "backward_kernel", "finish_kernel")
+    return {k: tuple(report.get(k, ("not found",) * 3)) for k in order}
 
 
 def write_survey(root, params, mu, grid, n):
@@ -1157,20 +1185,34 @@ def phase_step_vs_plain(device):
     )
 
     worst, failures = 0.0, []
-    # (label, grid, rows, real rows or None, regime, tau law)
-    cases = [("SDSS tail batch", SDSS, 500, 384, "moderate", "becker"),
-             ("DESI", DESI, 128, None, "moderate", "becker"),
+    # (label, grid, rows, real rows or None, regime, tau law, nh)
+    cases = [("SDSS tail batch", SDSS, 500, 384, "moderate", "becker", NH),
+             ("DESI", DESI, 128, None, "moderate", "becker", NH),
              ("SDSS low-noise tail batch", SDSS, 500, 384, "low-noise",
-              "becker")]
-    cases += [(f"SDSS {law}", SDSS, 64, None, "moderate", law)
+              "becker", NH)]
+    cases += [(f"SDSS {law}", SDSS, 64, None, "moderate", law, NH)
               for law in TAU_LAWS]
-    for label, grid_kw, n, n_real, regime, law in cases:
+    # a small tail batch per nh: with few real rows, leaving one out moves
+    # every gradient well past its limit (at 53 real rows the control moved
+    # nh 10's dtau0 by only 1.77e-4 of max|g| on an H100)
+    cases += [(f"SDSS nh={nh} tail batch", SDSS, 24, 19, "moderate",
+               "becker", nh) for nh in range(1, 11)]
+    for label, grid_kw, n, n_real, regime, law, nh in cases:
         grid = make_grid(**grid_kw)
-        params, mu = seeded_params(grid, device, regime)
+        params, mu = seeded_params(grid, device, regime, nh)
         batch = step_batch(train_problem(grid, params, mu, n, SEED + 61 + n,
                                          regime), n_real)
         got = fused_loss_grads(params, batch, tau_which=law)
+        again = fused_loss_grads(params, batch, tau_which=law)
         torch.cuda.synchronize()
+        if not (torch.equal(got.loss_sum, again.loss_sum)
+                and torch.equal(got.counts.pix, again.counts.pix)
+                and torch.equal(got.counts.scalar, again.counts.scalar)
+                and all(torch.equal(getattr(got.grads, k),
+                                    getattr(again.grads, k))
+                        for k in PARAM_NAMES)):
+            failures.append(f"{label}: a second call is not bitwise equal "
+                            "to the first")
         want = fused_loss_grads_plain(params, batch, tau_which=law)
         torch.cuda.synchronize()
         low = regime == "low-noise"
@@ -1196,9 +1238,10 @@ def phase_step_vs_plain(device):
                      f"{control[k]:.3g}, inside its limit {lim[k]:g}"
                      for k in PARAM_NAMES if not control[k] > lim[k]]
         worst = max(worst, err)
-        say(f"  {label} ({regime}, {law}): rows={n} real="
+        say(f"  {label} ({regime}, {law}, nh {nh}): rows={n} real="
             f"{n if n_real is None else n_real} npix={grid.npix}; loss rel "
-            f"{rel:.2e}; counts exact; grads max_abs_err={err!r}; "
+            f"{rel:.2e}; counts exact; a second call bitwise equal; grads "
+            f"max_abs_err={err!r}; "
             "max|kernel - plain| / max|plain| (witness, control): "
             + ", ".join(f"{k} {readings[k]:.2e} ({witness[k]:.2e}, "
                         f"{control[k]:.2e})" for k in PARAM_NAMES))
@@ -1346,6 +1389,7 @@ def phase_step_times(device, problem, reps=20):
     streaming epoch of the problem's spectra on the step kernel."""
     from qfa_tpu_torch.data.streaming import stream_batches
     from qfa_tpu_torch.models.qfa import loss_and_grads
+    from qfa_tpu_torch.ops import fused_step
     from qfa_tpu_torch.ops.fused_step import (
         fused_loss_grads,
         fused_loss_grads_plain,
@@ -1391,13 +1435,44 @@ def phase_step_times(device, problem, reps=20):
             st, _ = step(st, b)
         return st
 
-    # device time of the kernel's four stages per call
+    # device time per launch of each of the step's kernels (one launch
+    # each per call), each launched when the one before it has ended
+    # (early launch off: with it, a kernel's span would count its wait for
+    # the one before), and the call time by CUDA events in that mode
     calls = 20
-    _, stages, _, _, _ = profile_run(
-        lambda: [fused_loss_grads(params, batch) for _ in range(calls)])
+
+    def short(name):
+        return (re.search(r"\w+_kernel(<\d+>)?", name)
+                or re.match(".{0,40}", name))[0]
+
+    fused_step.EARLY_LAUNCH = False
+    try:
+        out["kernel alone"] = time_cuda(runs["kernel"], reps)
+        _, stages, _, _, counts = profile_run(
+            lambda: [fused_loss_grads(params, batch) for _ in range(calls)])
+    finally:
+        fused_step.EARLY_LAUNCH = True
     out["stages_us"] = None if stages is None else {
-        (re.search(r"\w+_kernel(<\d+>)?", k) or re.match(".{0,40}", k))[0]:
-        v / calls * 1e6 for k, v in stages.items()}
+        short(k): v / counts[k] * 1e6 for k, v in stages.items()}
+    out["stage_launches"] = None if stages is None else {
+        short(k): counts[k] for k in stages}
+    # with the early launch: the device's busy time per call (the union of
+    # the kernels' spans; only when the profiler saw every launch), and the
+    # wrapper's host time per call (calls enqueued back to back, host
+    # clock)
+    wall, _, _, busy, counts = profile_run(
+        lambda: [fused_loss_grads(params, batch) for _ in range(calls)])
+    seen = sorted(c for k, c in (counts or {}).items()
+                  if re.search(r"(forward|backward|finish)_kernel", k))
+    out["busy_us"] = busy * wall / calls * 1e6 \
+        if busy is not None and seen == [calls] * 3 else None
+    out["busy_seen"] = seen
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):  # few enough that no launch waits for the card
+        fused_loss_grads(params, batch)
+    out["host_us"] = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
     epoch(0)  # warm-up (pinned staging buffers, streams)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1848,10 +1923,32 @@ def main(argv=None):
             f"({n_stream / t12['epoch_wall_s']:.0f} "
             f"spectra/s), H2D copy {h2d}, device busy share {busy} "
             "(torch.profiler, profiled epoch)")
-        stages = "not measured" if t12["stages_us"] is None else ", ".join(
-            f"{k} {v:.2f} us" for k, v in t12["stages_us"].items())
-        say(f"  step kernel device time per call by stage (torch.profiler, "
-            f"{smi}): {stages}")
+        if t12["stages_us"] is None:
+            say("  step kernels' device time: not measured (torch.profiler "
+                "saw no device activity)")
+        else:
+            dev_us = sum(t12["stages_us"].values())
+            say(f"  step kernels, each launched when the one before it has "
+                f"ended (no early launch), device time per launch "
+                f"(torch.profiler, {smi}, one launch each per call): "
+                + ", ".join(
+                    f"{k} {v:.2f} us ({t12['stage_launches'][k]} launches "
+                    "seen of 20)" for k, v in t12["stages_us"].items())
+                + f"; sum {dev_us:.2f} us; call time by CUDA events "
+                f"{t12['kernel'] * 1e3:.2f} us with the early launch, "
+                f"{t12['kernel alone'] * 1e3:.2f} us without: "
+                f"{t12['kernel'] * 1e3 / dev_us:.2f}x the device time")
+        busy = f"{t12['busy_us']:.2f} us" if t12["busy_us"] is not None \
+            else ("not measured (the profiler saw "
+                  f"{t12['busy_seen']} of 20 launches of each kernel)")
+        say(f"  with the early launch: device busy per call {busy} "
+            f"(torch.profiler); the wrapper's host time "
+            f"{t12['host_us']:.2f} us per call (20 calls enqueued back to "
+            "back, host clock)")
+        say("  step kernels at nh 8 (ptxas -v): " + ", ".join(
+            f"{k} {r} registers, {sp} B spill stores/loads, {sm} B shared"
+            for k, (r, sp, sm) in step_build_report(
+                _build.build_log()).items()))
 
     if want(13):
         say("phase 13 alu_chain kernel vs plain version on the card:")

@@ -146,15 +146,23 @@ def variant_source(src: str, name: str) -> str:
 def build(names, tmp: Path) -> dict:
     """One library per variant, every nvcc started at once."""
     src = (_build.CSRC / "epoch.cu").read_text()
-    (tmp / "smallchol.cuh").write_text(
-        (_build.CSRC / "smallchol.cuh").read_text())
-    procs = {}
+    texts = {}
     for name in names:
         try:
-            text = variant_source(src, name)
+            texts[name] = variant_source(src, name)
         except ValueError as e:
             print(e, flush=True)
-            continue
+    return build_sources(texts, tmp)
+
+
+def build_sources(texts: dict, tmp: Path) -> dict:
+    """{name: library} of the kernel sources {name: text}, every nvcc
+    started at once beside csrc's headers; a build that fails is
+    reported and left out."""
+    for header in _build.CSRC.glob("*.cuh"):
+        (tmp / header.name).write_text(header.read_text())
+    procs = {}
+    for name, text in texts.items():
         (tmp / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",

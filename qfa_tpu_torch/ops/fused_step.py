@@ -2,10 +2,10 @@
 
 :func:`fused_loss_grads` runs
 
-* on CUDA tensors, the hand-written CUDA kernel ``csrc/step.cu`` (the port
-  of ``qfa_tpu.ops.fused_step._step_kernel`` with its wrapper's
-  lane-direction sums and :func:`finish_f_gradient`), built at first use by
-  :mod:`._build`; a launch that fails raises;
+* on CUDA tensors, the hand-written CUDA kernels ``csrc/step.cu`` (the
+  port of ``qfa_tpu.ops.fused_step._step_kernel`` with its wrapper's
+  lane-direction sums and :func:`finish_f_gradient`: three launches per
+  call), built at first use by :mod:`._build`; a launch that fails raises;
 * on CPU tensors, :func:`fused_loss_grads_plain`, the same function in
   plain torch ops: the reference the kernel is held against on the card.
 
@@ -18,8 +18,17 @@ the per-step engine of the host-streaming trainer
 (``train.loop.make_fused_step_fn``); the optimizer runs in torch.
 
 ``tile_batch`` is accepted for the JAX signature's sake: on the TPU it was
-the batch tile of a sequential grid, on the card the tile is no unit of
-work (every row is a block of the forward stage), so it has no effect.
+the batch tile of a sequential grid, on the card the kernels tile the
+batch by their own sizes, so it has no effect.
+
+The CUDA branch keeps its host time per call small, since a step's kernels
+take ~0.05 ms on an H100 and the card waits for the host until the first
+launch: the library is bound once per process, the checks are one pass
+over the eleven tensors, the outputs are one allocation, made while the
+previous call's kernels ran, and the scratch and the kernels' arrival
+counters are kept per (device, stream), made at the first call and
+reused while the shapes stay (the kernels leave the counters at zero, so
+no call clears them).
 """
 
 from __future__ import annotations
@@ -35,36 +44,60 @@ from ..linalg import smallchol
 from ..linalg.lowrank import LOG_2PI
 from ..models.params import PARAM_NAMES, QFAParams
 from ..models.qfa import GradCounts
+from . import _build
 from .common import tau_law_abc
 
 Tensor = torch.Tensor
 
 __all__ = [
+    "EARLY_LAUNCH",
     "FusedStepOutputs",
     "LAUNCHES",
     "MAX_NH",
+    "StepGrads",
     "finish_f_gradient",
     "fused_loss_grads",
     "fused_loss_grads_plain",
 ]
 
-#: Calls that launched the CUDA step kernel in this process. Incremented
-#: where the wrapper launches the kernel, and nowhere else.
+#: Calls that launched the CUDA step kernels in this process. Incremented
+#: where the wrapper launches them, and nowhere else.
 LAUNCHES = 0
 _LAUNCH_LOCK = threading.Lock()
 
-#: the CUDA kernel is instantiated for 1 <= nh <= 10
+#: the CUDA kernels are instantiated for 1 <= nh <= 10
 MAX_NH = 10
 
-#: backward batch rows per block of the CUDA kernel (``kChunk`` in step.cu)
-_CHUNK_ROWS = 32
-#: slots of the kernel's small output
-_OUT = ("loss_sum", "scalar_count", "tau0", "c0", "beta")
+#: Launch the backward and finish kernels early (programmatic dependent
+#: launch). False starts each when the one before it has ended, with the
+#: same results: for timing each kernel alone.
+EARLY_LAUNCH = True
+
+#: per (device index, stream): (shapes, the kernels' scratch, their arrival
+#: counters, the two's pointers and lengths for the C entry, a list that
+#: holds the next call's output buffer)
+_SCRATCH: dict = {}
+
+
+class StepGrads(NamedTuple):
+    """Summed gradients of the parameters, by name (``PARAM_NAMES``)."""
+
+    F: Tensor
+    Psi: Tensor
+    omega: Tensor
+    tau0: Tensor
+    c0: Tensor
+    beta: Tensor
+
+    def to_numpy(self) -> dict:
+        """The gradients as a name -> float32 numpy array dict."""
+        return {k: v.detach().cpu().numpy().astype(np.float32)
+                for k, v in self._asdict().items()}
 
 
 class FusedStepOutputs(NamedTuple):
     loss_sum: Tensor  #: () summed NLL over the batch.
-    grads: QFAParams  #: summed gradients (not normalized).
+    grads: StepGrads  #: summed gradients (not normalized).
     counts: GradCounts  #: per-element contribution counts.
 
     def to_numpy(self) -> dict:
@@ -89,31 +122,32 @@ def finish_f_gradient(drhs: Tensor, f: Tensor, npix: int, nh: int) -> Tensor:
     return torch.einsum("pij,pj->pi", dg_sym, f) + direct
 
 
-def _outputs(loss_sum, grads: dict, pix, scalar) -> FusedStepOutputs:
-    return FusedStepOutputs(
-        loss_sum=loss_sum,
-        grads=QFAParams(**grads).requires_grad_(False),
-        counts=GradCounts(pix=pix, scalar=scalar),
-    )
+def _param_tensors(params: QFAParams) -> tuple:
+    """F, Psi, omega, tau0, c0, beta, read from the module's parameter
+    dict: an ``nn.Module`` attribute lookup costs ~2 us of host time."""
+    d = params._parameters
+    return d["F"], d["Psi"], d["omega"], d["tau0"], d["c0"], d["beta"]
 
 
-def _check_batch(params: QFAParams, batch: SpectraBatch) -> None:
-    npix, nh = params.F.shape
-    nb = params.omega.shape[0]
+def _check_batch(F: Tensor, psi: Tensor, omega: Tensor,
+                 batch: SpectraBatch) -> None:
+    npix, nh = F.shape
+    nb = omega.shape[0]
     b = batch.delta.shape[0]
-    if params.Psi.shape != (npix,) or not 0 <= nb <= npix:
-        raise ValueError(f"Psi {tuple(params.Psi.shape)} / omega ({nb},) do "
+    if psi.shape != (npix,) or not 0 <= nb <= npix:
+        raise ValueError(f"Psi {tuple(psi.shape)} / omega ({nb},) do "
                          f"not fit F ({npix}, {nh})")
+    plane = (b, npix)
     for name in ("delta", "error", "mask"):
         t = getattr(batch, name)
-        if t.ndim != 2 or tuple(t.shape) != (b, npix):
+        if t.shape != plane:
             raise ValueError(f"batch.{name} {tuple(t.shape)} must be "
                              f"(B={b}, Npix={npix})")
-    if batch.zabs.ndim != 2 or batch.zabs.shape[0] != b or \
-            batch.zabs.shape[1] < nb:
-        raise ValueError(f"batch.zabs {tuple(batch.zabs.shape)} must be "
+    zs = batch.zabs.shape
+    if len(zs) != 2 or zs[0] != b or zs[1] < nb:
+        raise ValueError(f"batch.zabs {tuple(zs)} must be "
                          f"(B={b}, >= Nb={nb})")
-    if tuple(batch.weight.shape) != (b,):
+    if batch.weight.shape != (b,):
         raise ValueError(f"batch.weight {tuple(batch.weight.shape)} must be "
                          f"(B={b},)")
 
@@ -135,7 +169,7 @@ def fused_loss_grads_plain(
     ``qfa_tpu/ops/fused_step.py``; not autograd.
     """
     del tile_batch  # no unit of work here; see the module docstring
-    _check_batch(params, batch)
+    _check_batch(params.F, params.Psi, params.omega, batch)
     law_a, law_b, law_c = tau_law_abc(tau_which)
     f32 = torch.float32
     F = params.F.detach().to(f32)
@@ -204,20 +238,12 @@ def fused_loss_grads_plain(
         "c0": (-droot2).sum(dim=0).sum(),
         "beta": (dtau_hi * tau0 * zp1b * torch.log(zp1)).sum(dim=0).sum(),
     }
-    return _outputs(nll.sum(), grads, m.sum(dim=0), scalar)
+    return FusedStepOutputs(nll.sum(), StepGrads(**grads),
+                            GradCounts(m.sum(dim=0), scalar))
 
 
-def _launch(params: QFAParams, batch: SpectraBatch, law) -> FusedStepOutputs:
-    from ._build import load_library
-
-    dev = batch.delta.device
-    npix, nh = params.F.shape
-    nb = params.omega.shape[0]
-    if nh < 1 or nh > MAX_NH:
-        raise ValueError(f"the CUDA step kernel supports 1 <= nh <= "
-                         f"{MAX_NH}; got nh={nh}")
-    tensors = {k: getattr(batch, k) for k in SpectraBatch._fields}
-    tensors.update({k: getattr(params, k) for k in PARAM_NAMES})
+def _raise_bad_tensor(tensors: dict, dev) -> None:
+    """The error of the first tensor the kernels do not take."""
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device} but delta on {dev}")
@@ -225,38 +251,63 @@ def _launch(params: QFAParams, batch: SpectraBatch, law) -> FusedStepOutputs:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    b = batch.delta.shape[0]
-    ntri = nh * (nh + 1) // 2
-    n_chunks = -(-b // _CHUNK_ROWS)
-    f32 = dict(dtype=torch.float32, device=dev)
-    scratch = torch.empty(
-        (b * (ntri + nh + 2) + n_chunks * (ntri + nh + 6) * npix + 3 * nb,),
-        **f32)
-    s_buf, alpha_buf, rowstat, partials, srows = torch.split(
-        scratch, [b * ntri, b * nh, b * 2, n_chunks * (ntri + nh + 6) * npix,
-                  3 * nb])
-    res = torch.empty((npix * nh + 2 * npix + nb + len(_OUT),), **f32)
-    g_f, g_psi, counts, g_omega, out = torch.split(
-        res, [npix * nh, npix, npix, nb, len(_OUT)])
 
-    def ptr(t):
-        return t.data_ptr()
 
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.qfa_step_f32(
-            ptr(batch.delta), ptr(batch.error), ptr(batch.zabs),
-            batch.zabs.shape[1], ptr(batch.mask), ptr(batch.weight),
-            ptr(params.F), ptr(params.Psi), ptr(params.omega),
-            ptr(params.tau0), ptr(params.c0), ptr(params.beta),
-            *law, b, npix, nb, nh,
-            ptr(s_buf), ptr(alpha_buf), ptr(rowstat), ptr(partials),
-            ptr(srows), ptr(g_f), ptr(g_psi), ptr(g_omega), ptr(counts),
-            ptr(out), n_chunks,
-            dev.index if dev.index is not None else torch.cuda.current_device(),
-            stream,
-        )
+def _scratch(lib, key: tuple, shapes: tuple, dev) -> tuple:
+    """The ``_SCRATCH`` entry of this (device, stream) for these shapes:
+    made at the first call, the counters zeroed, then reused (stream order
+    keeps calls on one stream apart; the kernels leave the counters at
+    zero)."""
+    got = _SCRATCH.get(key)
+    if got is None or got[0] != shapes:
+        b, npix, nb, nh = shapes
+        n_scratch = lib.qfa_step_scratch_len(b, npix, nh)
+        n_counters = lib.qfa_step_n_counters(b)
+        scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev)
+        counters = torch.zeros((n_counters,), dtype=torch.int32, device=dev)
+        got = _SCRATCH[key] = (shapes, scratch, counters, (
+            scratch.data_ptr(), n_scratch, counters.data_ptr(), n_counters),
+            [])
+    return got
+
+
+def _launch(params: QFAParams, batch: SpectraBatch, law) -> FusedStepOutputs:
+    lib = _build.load_library()
+    delta, error, zabs, mask, weight = batch
+    F, psi, omega, tau0, c0, beta = _param_tensors(params)
+    _check_batch(F, psi, omega, batch)
+    tensors = (delta, error, zabs, mask, weight, F, psi, omega, tau0, c0,
+               beta)
+    dev = delta.device
+    on = delta.get_device()
+    f32 = torch.float32
+    for t in tensors:
+        if t.dtype is not f32 or not t.is_contiguous() or \
+                t.get_device() != on:
+            _raise_bad_tensor(
+                dict(zip((*SpectraBatch._fields, *PARAM_NAMES), tensors)),
+                dev)
+    npix, nh = F.shape
+    nb = omega.shape[0]
+    b = delta.shape[0]
+    if not 1 <= nh <= MAX_NH:
+        raise ValueError(f"the CUDA step kernel supports 1 <= nh <= "
+                         f"{MAX_NH}; got nh={nh}")
+    index, stream = _build.device_and_stream(dev)
+    _, _, _, scratch, spare = _scratch(lib, (index, stream),
+                                       (b, npix, nb, nh), dev)
+    n_out = npix * nh + 2 * npix + nb + 5
+    # the outputs: a fresh buffer, allocated while the previous call's
+    # kernels ran (list.pop is atomic, so no two calls get one buffer)
+    res = spare.pop() if spare else torch.empty((n_out,), dtype=f32,
+                                                device=dev)
+    # the C entry leaves the thread's current device as it was
+    rc = lib.qfa_step_f32(
+        delta.data_ptr(), error.data_ptr(), zabs.data_ptr(), zabs.shape[1],
+        mask.data_ptr(), weight.data_ptr(), F.data_ptr(), psi.data_ptr(),
+        omega.data_ptr(), tau0.data_ptr(), c0.data_ptr(), beta.data_ptr(),
+        *law, b, npix, nb, nh, *scratch, res.data_ptr(), int(EARLY_LAUNCH),
+        index, stream)
     if rc != 0:
         raise RuntimeError(
             f"CUDA step kernel launch failed: error {rc} "
@@ -264,12 +315,17 @@ def _launch(params: QFAParams, batch: SpectraBatch, law) -> FusedStepOutputs:
     global LAUNCHES
     with _LAUNCH_LOCK:
         LAUNCHES += 1
-    grads = {"F": g_f.view(npix, nh), "Psi": g_psi, "omega": g_omega,
-             "tau0": out[2], "c0": out[3], "beta": out[4]}
-    return _outputs(out[0], grads, counts, out[1])
+    # the next call's outputs, while these kernels run
+    spare.append(torch.empty((n_out,), dtype=f32, device=dev))
+    g_f, g_psi, counts, g_omega, out = res.split_with_sizes(
+        (npix * nh, npix, npix, nb, 5))
+    loss, scalar, g_tau0, g_c0, g_beta = out.unbind()
+    return FusedStepOutputs(
+        loss, StepGrads(g_f.view(npix, nh), g_psi, g_omega, g_tau0, g_c0,
+                        g_beta),
+        GradCounts(counts, scalar))
 
 
-@torch.no_grad()
 def fused_loss_grads(
     params: QFAParams,
     batch: SpectraBatch,
@@ -284,8 +340,8 @@ def fused_loss_grads(
     ``tau_which`` must name a law of ``ops.common.TAU_LAW_ABC``;
     ``tile_batch`` has no effect (module docstring). Tensors on the CPU run
     :func:`fused_loss_grads_plain`; tensors on a CUDA device launch the
-    CUDA kernel, or raise (float32, contiguous, all on one device,
-    1 <= nh <= 10).
+    CUDA kernels, or raise (float32, contiguous, all on one device,
+    1 <= nh <= 10). No autograd graph is built on either branch.
     """
     dev = batch.delta.device
     if dev.type == "cpu":
@@ -293,5 +349,4 @@ def fused_loss_grads(
     if dev.type != "cuda":
         raise ValueError(
             f"fused_loss_grads runs on cpu or cuda, not {dev}")
-    _check_batch(params, batch)
     return _launch(params, batch, tau_law_abc(tau_which))

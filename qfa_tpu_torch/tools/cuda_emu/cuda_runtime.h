@@ -1,6 +1,7 @@
 // CPU stand-in for the parts of the CUDA runtime and device language that
-// qfa_tpu_torch/csrc/epoch.cu and predict.cu use, so that g++ compiles the
-// kernel sources themselves for the CPU (qfa_tpu_torch/tools/emulate.py).
+// qfa_tpu_torch/csrc/epoch.cu, predict.cu and step.cu use, so that g++
+// compiles the kernel sources themselves for the CPU
+// (qfa_tpu_torch/tools/emulate.py).
 // One std::thread per CUDA thread; the blocks of a launch run one after
 // another, so __shared__ becomes a static shared by the block's threads;
 // __syncthreads is a barrier of the block, a warp shuffle two barriers of
@@ -40,6 +41,7 @@ inline const char* cudaGetErrorString(cudaError_t e) {
 }
 typedef void* cudaStream_t;
 inline cudaError_t cudaSetDevice(int) { return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline std::barrier<>* g_bar = nullptr;
 inline std::vector<std::barrier<>*> g_warp_bar;  // one per warp

@@ -339,10 +339,16 @@ def test_step_kernel_cpu_calls_are_not_launches():
 def test_step_kernel_source_and_signature():
     assert (_build.CSRC / "step.cu").is_file()
     argtypes, restype = _build.SIGNATURES["qfa_step_f32"]
-    assert len(argtypes) == 32 and restype is not None
+    assert len(argtypes) == 27 and restype is not None
     src = (_build.CSRC / "step.cu").read_text()
     assert "int qfa_step_f32(" in src and '#include "smallchol.cuh"' in src
     assert "atomicAdd" not in src  # deterministic: fixed-order sums only
+    # the one atomic of the shared header: the integer arrival counter
+    # that finds a launch's last block (no float atomics)
+    assert '#include "train_core.cuh"' in src
+    core = (_build.CSRC / "train_core.cuh").read_text()
+    assert re.findall(r"atomicAdd\((\w+)", core) == ["counter"]
+    assert "bool last_to_arrive(int* counter," in core
 
 
 def test_no_source_cites_b1b_for_the_epoch_kernel():
@@ -361,8 +367,11 @@ def test_no_source_cites_b1b_for_the_epoch_kernel():
 
 def test_epoch_kernel_has_no_float_atomics():
     """Every sum of csrc/epoch.cu has a fixed order; its only atomics
-    count arrivals on int counters."""
+    count arrivals on int counters (in the header it shares with
+    step.cu)."""
     src = (_build.CSRC / "epoch.cu").read_text()
+    assert '#include "train_core.cuh"' in src
+    src += (_build.CSRC / "train_core.cuh").read_text()
     assert "int* counters;" in src
     calls = re.findall(r"atomic\w+\(([^,]+),", src)
     assert calls and all("counter" in arg for arg in calls), calls

@@ -75,12 +75,18 @@ made from a seed:
     (256, 1024) tile, one launch of each at the fma calibration's larger
     count, then ``calibrate_peaks`` and ``calibrate_alu``, each rate beside
     its published counterpart;
-14. the contraction-depth probe: the kdepth kernel against its plain
-    version for all 8 variants at grid 3 and for pair36+8 at the probe's
-    grid 4096 (beside a float64 witness), its times (kernel at the full
-    and an eighth of the grid, plain, one ``torch.addmm`` per step as the
-    library yardstick, replayed from a CUDA graph), then ``qfa_tpu_torch.tools.mxu_kdepth.main`` at
-    its defaults into a temporary directory.
+14. the contraction-depth probe: the kdepth kernel (dot products on the
+    tensor cores in split TF32) against its plain version for all 8
+    variants at grid 3 and at the probe's grid 4096 (beside a float64
+    witness and a control), each with a repeat call bitwise equal, timed
+    per call (CUDA events from an idle device, as every kernel here) with
+    the steps in the library's chunks and in one, and on the device (each
+    call queued behind another) at the full and an eighth of the grid,
+    where the time must grow with the grid; pair36+8's
+    plain version and one ``torch.addmm`` per step as the library
+    yardstick, replayed from a CUDA graph; then
+    ``qfa_tpu_torch.tools.mxu_kdepth.main`` at its defaults into a
+    temporary directory.
 
 Prints a JSON line of kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -200,6 +206,9 @@ FP32_FLOP_PER_S = 67e12
 #: ... and dense bf16 FLOP/s on the tensor cores, for the calibration's
 #: shares (phase 13)
 BF16_FLOP_PER_S = 989e12
+#: ... and dense TF32 FLOP/s on the tensor cores, for the probe's bound
+#: (phase 14: its dot products take three TF32 passes)
+TF32_FLOP_PER_S = 495e12
 #: alu_chain kernel against its plain version (phase 13), relative. fma:
 #: nvcc contracts x * a + b into one FFMA and the plain version rounds
 #: each rep once as well, so they should agree bitwise; one rep moves the
@@ -216,10 +225,11 @@ ALU_MIN_DELTA_S = 2e-3
 #: sum of 4096 nearly equal steps carries its rounding on: the witness
 #: (the plain float32 version against the same steps in float64, on the
 #: card) read 4.89e-05 on an H100 (PERF.md section 6), so a float32 kernel
-#: that added its steps in another order could sit that far from the plain
-#: version; the control (the plain version with its last step left out)
-#: moves the output by 1/4096 = 2.44e-4. The limit lies between; the phase
-#: prints all three readings and checks that the control exceeds it.
+#: that added its steps in another order (the kernel sums its chunks'
+#: partials) could sit that far from the plain version; the control (the
+#: plain version with its last step left out) moves the output by 1/4096 =
+#: 2.44e-4. The limit lies between; the phase prints all three readings
+#: for every variant and checks that the control exceeds it.
 KDEPTH_REL = 1e-5
 KDEPTH_FULL_REL = 1e-4
 #: the probe's grid (tools/mxu_kdepth.py's default)
@@ -642,6 +652,23 @@ def time_cuda(fn, reps):
     """Median ms of fn() over reps runs, by CUDA events."""
     times = []
     for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_cuda_queued(fn, reps):
+    """Median ms of fn() over reps runs, by CUDA events, each run queued
+    behind one more untimed run of fn, so that the host's time to launch it
+    overlaps the device's work: the device's time per call."""
+    times = []
+    for _ in range(reps):
+        fn()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1550,66 +1577,100 @@ def phase_alu(device, smi):
 
 
 def phase_kdepth(device, smi):
-    """B5: the contraction probe against its plain version, all variants
-    at grid 3 and pair36+8 at the probe's grid (with the float64 witness);
-    times of pair36+8 (kernel at the full and an eighth of the grid,
-    plain, and the torch.addmm yardstick); then the probe tool, its
+    """B5: the contraction probe against its plain version, every variant
+    at grid 3 and at the probe's grid (with the float64 witness and the
+    last-step-left-out control), each with a repeat call bitwise equal and
+    its device time growing with the grid, and timed per call with the
+    chunks the library picks and with one chunk; times of pair36+8's plain
+    version and of the torch.addmm yardstick; then the probe tool, its
     launches counted from zero."""
+    from qfa_tpu_torch.ops import _build
     from qfa_tpu_torch.ops import kdepth as kd
     from qfa_tpu_torch.tools import mxu_kdepth
 
     pool_l, pool_lt, r, r2 = mxu_kdepth.make_operands(1, device)
-    l, lt = pool_l[0], pool_lt[0]
+    ops = (pool_l[0], pool_lt[0], r, r2)
+    lib = _build.load_library()
+    index = torch.cuda.current_device()
     worst = 0.0
+    times = {}
 
     def rel_err(a, b):
         return float((a - b).abs().max()) / float(b.abs().max())
 
     for name, k1, k2, vpu_k2 in kd.VARIANTS:
-        kw = dict(k1=k1, k2=k2, vpu_k2=vpu_k2, grid=3)
-        got = kd.contraction_probe(l, lt, r, r2, **kw)
-        want = kd.contraction_probe_plain(l, lt, r, r2, **kw)
+        kw = dict(k1=k1, k2=k2, vpu_k2=vpu_k2)
+        got = kd.contraction_probe(*ops, **kw, grid=3)
+        again = kd.contraction_probe(*ops, **kw, grid=3)
+        want = kd.contraction_probe_plain(*ops, **kw, grid=3)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"probe {name}: not finite")
         rel = rel_err(got, want)
         check(rel <= KDEPTH_REL, f"probe {name}, grid 3: kernel and plain "
               f"version differ by {rel:.3g} of max|out|")
+        check(torch.equal(again, got), f"probe {name}, grid 3: a repeat "
+              "call differs")
         worst = max(worst, float((got - want).abs().max()))
-        say(f"  probe {name}, grid 3: max|kernel - plain| / max|plain| = "
-            f"{rel:.2e} (limit {KDEPTH_REL:g})")
+
+        full = dict(kw, grid=KDEPTH_GRID)
+        got = kd.contraction_probe(*ops, **full)
+        again = kd.contraction_probe(*ops, **full)
+        want = kd.contraction_probe_plain(*ops, **full)
+        ref = kd.contraction_probe_plain(*(t.double() for t in ops), **full)
+        control = rel_err(kd.contraction_probe_plain(
+            *ops, **dict(full, grid=KDEPTH_GRID - 1)), want)
+        torch.cuda.synchronize()
+        rel_full, witness = rel_err(got, want), rel_err(want, ref)
+        check(bool(torch.isfinite(got).all()), f"probe {name}, grid "
+              f"{KDEPTH_GRID}: not finite")
+        check(rel_full <= KDEPTH_FULL_REL, f"probe {name}, grid "
+              f"{KDEPTH_GRID}: kernel and plain version differ by "
+              f"{rel_full:.3g} of max|out|")
+        check(control > KDEPTH_FULL_REL, f"probe {name}: control "
+              f"{control:.3g} inside the limit {KDEPTH_FULL_REL:g}")
+        check(torch.equal(again, got), f"probe {name}, grid {KDEPTH_GRID}: "
+              "a repeat call differs")
+        worst = max(worst, float((got - want).abs().max()))
+
+        chunks = kd._chunks(lib, (kd.TB, kd.P, k1, k2 or 0,
+                                  kd._MODE[vpu_k2], KDEPTH_GRID), index)
+        # per call from an idle device, the host's time to launch it
+        # included, as every kernel of the `kernels` line is timed
+        ms = time_cuda(lambda: kd.contraction_probe(*ops, **full), 5)
+        # device time per call for the grows-with-the-grid check: at an
+        # eighth of the grid single8 takes ~0.07 ms on the device, and the
+        # host's time to launch it would count there
+        dev = time_cuda_queued(lambda: kd.contraction_probe(*ops, **full), 5)
+        dev_8th = time_cuda_queued(lambda: kd.contraction_probe(
+            *ops, **dict(full, grid=KDEPTH_GRID // 8)), 5)
+        check(dev >= 4 * dev_8th, f"probe {name}: time does not grow with "
+              f"the grid: {dev!r} ms at {KDEPTH_GRID} steps, {dev_8th!r} ms "
+              f"at {KDEPTH_GRID // 8} (on the device)")
+        one = kd._launch(*ops, k1, k2, vpu_k2, KDEPTH_GRID, chunks=1)
+        torch.cuda.synchronize()
+        rel_one = rel_err(one, want)
+        check(rel_one <= KDEPTH_FULL_REL, f"probe {name}, one chunk: "
+              f"kernel and plain version differ by {rel_one:.3g}")
+        ms_one = time_cuda(lambda: kd._launch(
+            *ops, k1, k2, vpu_k2, KDEPTH_GRID, chunks=1), 5)
+        times[name] = ms
+        say(f"  probe {name}: grid 3 {rel:.2e} (limit {KDEPTH_REL:g}); grid "
+            f"{KDEPTH_GRID} {rel_full:.2e} (limit {KDEPTH_FULL_REL:g}; "
+            f"witness plain float32 vs float64 {witness:.2e}, kernel vs "
+            f"float64 {rel_err(got, ref):.2e}, control {control:.2e}); "
+            f"repeat calls bitwise equal; {chunks} chunks: {ms!r} ms per "
+            f"call ({ms / KDEPTH_GRID * 1e3:.4f} us per step); on the "
+            f"device {dev!r} ms, {dev_8th!r} ms at grid {KDEPTH_GRID // 8}; "
+            f"one chunk: {ms_one!r} ms per call ({rel_one:.2e} from plain)")
+
     _, k1, k2, vpu_k2 = kd.VARIANTS[0]  # pair36+8
     kw = dict(k1=k1, k2=k2, vpu_k2=vpu_k2, grid=KDEPTH_GRID)
-    got = kd.contraction_probe(l, lt, r, r2, **kw)
-    want = kd.contraction_probe_plain(l, lt, r, r2, **kw)
-    ref = kd.contraction_probe_plain(*(t.double() for t in (l, lt, r, r2)),
-                                     **kw)
-    control = rel_err(kd.contraction_probe_plain(
-        l, lt, r, r2, **dict(kw, grid=KDEPTH_GRID - 1)), want)
-    torch.cuda.synchronize()
-    rel, witness = rel_err(got, want), rel_err(want, ref)
-    check(rel <= KDEPTH_FULL_REL, f"probe pair36+8, grid {KDEPTH_GRID}: "
-          f"kernel and plain version differ by {rel:.3g} of max|out|")
-    check(control > KDEPTH_FULL_REL, f"probe control {control:.3g} inside "
-          f"the limit {KDEPTH_FULL_REL:g}")
-    worst = max(worst, float((got - want).abs().max()))
-    say(f"  probe pair36+8, grid {KDEPTH_GRID}: max|kernel - plain| / "
-        f"max|plain| = {rel:.2e} (limit {KDEPTH_FULL_REL:g}); witness "
-        f"plain float32 vs float64 {witness:.2e} (kernel vs float64 "
-        f"{rel_err(got, ref):.2e}); control, last step left out, "
-        f"{control:.2e}")
-
-    ms = time_cuda(lambda: kd.contraction_probe(l, lt, r, r2, **kw), 5)
-    ms_8th = time_cuda(lambda: kd.contraction_probe(
-        l, lt, r, r2, **dict(kw, grid=KDEPTH_GRID // 8)), 5)
-    check(ms >= 4 * ms_8th, f"probe time does not grow with the grid: "
-          f"{ms!r} ms at {KDEPTH_GRID} steps, {ms_8th!r} ms at "
-          f"{KDEPTH_GRID // 8}")
-    plain_ms = time_cuda(lambda: kd.contraction_probe_plain(l, lt, r, r2,
-                                                            **kw), 1)
+    want = kd.contraction_probe_plain(*ops, **kw)
+    plain_ms = time_cuda(lambda: kd.contraction_probe_plain(*ops, **kw), 1)
     # yardstick, never called by the port: one torch.addmm per step,
     # o += s_j (L[:44]^T @ (w R[:44])) with w 0.5 on the 36 dw rows and
     # 0.25 on the 8 du rows (TF32 off since phase 1)
-    lt44 = l[:44].T.contiguous()
+    lt44 = ops[0][:44].T.contiguous()
     rw = r[:44] * torch.cat([torch.full((36, 1), 0.5, device=device),
                              torch.full((8, 1), 0.25, device=device)])
     scales = [kd.step_scale(j) for j in range(KDEPTH_GRID)]
@@ -1646,31 +1707,34 @@ def phase_kdepth(device, smi):
     check(launches >= 1, "the probe launched no kdepth kernel")
     check(other_counts(kd) == 0, "the probe launched another kernel")
     check(record["grid"] == KDEPTH_GRID, "the probe's grid")
+    ms = times["pair36+8"]
+    # bound: the 44 rows of l and r the variant reads and the output once;
+    # 2 * TB * P * 44 operations per step, three TF32 passes of them
+    n_bytes = 4 * (44 * kd.TB + 44 * kd.P + kd.TB * kd.P)
+    bnd = bound(n_bytes, 3 * 2 * kd.TB * kd.P * 44 * KDEPTH_GRID,
+                TF32_FLOP_PER_S)
     per = ", ".join(f"{k} {v['us_per_step']!r}"
                     for k, v in record["variants"].items())
     say(f"phase 14 probe ({smi}): us per step: {per}; "
         f"k_scaling_128_over_8 {record['k_scaling_128_over_8']!r}, "
         f"flat_in_k {record['flat_in_k']}; f32 peak "
         f"{record['mxu_peak_tflops_f32']!r} TFLOP/s; pair36+8 at grid "
-        f"{KDEPTH_GRID}: kernel {ms!r} ms ({ms_8th!r} ms at an eighth of "
-        f"the grid), plain {plain_ms!r} ms, torch.addmm per step "
-        f"{library_ms!r} ms in a CUDA graph, {eager_ms!r} ms launched from "
-        f"the host (its result {lib_rel:.2e} of max|out| from the plain "
-        f"version); {launches} kdepth launches; "
+        f"{KDEPTH_GRID}: kernel {ms!r} ms per call ({bnd[0] / ms:.3f} of its "
+        f"tensor-core bound {bnd[0]:.4f} ms), plain {plain_ms!r} ms, "
+        f"torch.addmm per step {library_ms!r} ms in a CUDA graph, "
+        f"{eager_ms!r} ms launched from the host (its result {lib_rel:.2e} "
+        f"of max|out| from the plain version); {launches} kdepth launches; "
         f"{time.perf_counter() - t0:.1f} s")
-    # bound: the 44 rows of l and r the variant reads and the output once;
-    # 2 * TB * P * 44 operations per step
-    n_bytes = 4 * (44 * kd.TB + 44 * kd.P + kd.TB * kd.P)
     return dict(launches=launches, worst=worst, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms,
-                bound=bound(n_bytes, 2 * kd.TB * kd.P * 44 * KDEPTH_GRID))
+                library_ms=library_ms, bound=bnd)
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, flop_per_s=FP32_FLOP_PER_S):
     """(ms, "bytes" or "operations"): the larger of the bytes over the
-    card's HBM rate and the fp32 operations over its fp32 peak."""
+    card's HBM rate and the operations over their peak (fp32 outside the
+    tensor cores unless given)."""
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_o = flops / FP32_FLOP_PER_S * 1e3
+    t_o = flops / flop_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 

@@ -131,34 +131,45 @@ PHASES = {
 STAGES = ("forward", "backward", "update")
 
 
-def variant_source(src: str, name: str) -> str:
-    """The kernel source of a variant, instantiated for nh 8 only."""
-    for old, new in VARIANTS[name][1]:
-        if old not in src:
-            raise ValueError(f"variant {name}: text not in epoch.cu: "
-                             f"{old[:60]!r}")
-        src = src.replace(old, new, 1)
+def nh8_only(text: str) -> str:
+    """A source of epoch.cu or step.cu instantiated for nh 8 only."""
     return re.sub(r"    case (\d+): return run<\1>",
                   lambda m: m[0] if m[1] == "8" else
-                  f"    case {m[1]}: return cudaErrorInvalidValue; //", src)
+                  f"    case {m[1]}: return cudaErrorInvalidValue; //", text)
 
 
 def build(names, tmp: Path) -> dict:
     """One library per variant, every nvcc started at once."""
-    src = (_build.CSRC / "epoch.cu").read_text()
+    return build_variants("epoch.cu", VARIANTS, names, tmp, nh8_only)
+
+
+def build_variants(source: str, table: dict, names, tmp: Path,
+                   finish=None) -> dict:
+    """{name: library} of the variants ``names`` of ``csrc/<source>``: its
+    text with each (old, new) of ``table[name][1]`` replaced once, then
+    ``finish(text)`` if given, every nvcc started at once
+    (:func:`build_sources`). A variant whose text is no longer in the
+    source (after its earlier replacements) is reported and skipped."""
+    src = (_build.CSRC / source).read_text()
     texts = {}
     for name in names:
-        try:
-            texts[name] = variant_source(src, name)
-        except ValueError as e:
-            print(e, flush=True)
+        text = src
+        for old, new in table[name][1]:
+            if old not in text:
+                print(f"variant {name}: text not in {source}: "
+                      f"{old[:60]!r}", flush=True)
+                break
+            text = text.replace(old, new, 1)
+        else:
+            texts[name] = finish(text) if finish else text
     return build_sources(texts, tmp)
 
 
 def build_sources(texts: dict, tmp: Path) -> dict:
     """{name: library} of the kernel sources {name: text}, every nvcc
-    started at once beside csrc's headers; a build that fails is
-    reported and left out."""
+    started at once beside csrc's headers (each one's output, with ptxas's
+    report, in ``tmp / f"{name}.log"``); a build that fails is reported
+    and left out."""
     for header in _build.CSRC.glob("*.cuh"):
         (tmp / header.name).write_text(header.read_text())
     procs = {}
@@ -171,6 +182,7 @@ def build_sources(texts: dict, tmp: Path) -> dict:
     libs = {}
     for name, proc in procs.items():
         out = proc.communicate()[0]
+        (tmp / f"{name}.log").write_text(out)
         if proc.returncode:
             print(f"variant {name}: nvcc failed:\n{out[-2000:]}", flush=True)
             continue

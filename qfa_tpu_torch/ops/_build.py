@@ -118,10 +118,16 @@ SIGNATURES = {
     "qfa_kdepth_f32": (
         [
             _P, _P, _P, _P, _P,  # l, lt, r, r2, out
+            _P, _L,  # partials, their length (scratch)
             _I, _I, _I,  # kmax, tb, p
-            _I, _I, _I, _I,  # k1, k2, mode, grid
+            _I, _I, _I, _I, _I,  # k1, k2, mode, grid, chunks
             _I, _P,  # device, stream
         ],
+        ctypes.c_int,
+    ),
+    "qfa_kdepth_chunks": (
+        [_I, _I, _I, _I, _I, _I,  # tb, p, k1, k2, mode, grid
+         _I, _P],  # device, chunks (int output)
         ctypes.c_int,
     ),
     "qfa_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),

@@ -4,8 +4,9 @@ isolation.
 :func:`contraction_probe` runs
 
 * on CUDA tensors, the hand-written CUDA kernel ``csrc/kdepth.cu`` (the
-  port of ``tools/mxu_kdepth.py``'s ``_body``), built at first use by
-  :mod:`._build`; a launch that fails raises;
+  port of ``tools/mxu_kdepth.py``'s ``_body``: the MXU's dot products on
+  the tensor cores in split TF32, the VPU's outer products in f32 FMAs),
+  built at first use by :mod:`._build`; a launch that fails raises;
 * on CPU tensors, :func:`contraction_probe_plain`, the same steps in plain
   torch ops: the reference the kernel is held against on the card.
 
@@ -20,6 +21,7 @@ and combines its halves.
 
 from __future__ import annotations
 
+import ctypes
 import threading
 
 import numpy as np
@@ -57,8 +59,11 @@ VARIANTS = (
 )
 
 #: the CUDA kernel's tile: TB must be a multiple of _BM, P of _BN
-_BM, _BN = 32, 64
+_BM, _BN = 64, 128
 _MODE = {False: 0, True: 1, "wide": 2}
+#: the library's chunks per (library, variant, device index), asked once:
+#: the query costs host time that a call at a small grid would show
+_CHUNKS: dict = {}
 
 
 def step_scale(j: int) -> float:
@@ -67,9 +72,12 @@ def step_scale(j: int) -> float:
     return float(np.float32(1.0) + np.float32(j) * np.float32(1e-9))
 
 
+_VARIANT_KEYS = frozenset(v[1:] for v in VARIANTS)
+_FLOATS = (torch.float32, torch.float64)
+
+
 def _check(l, lt, r, r2, k1, k2, vpu_k2, grid) -> None:
-    variants = {(v[1], v[2], v[3]) for v in VARIANTS}
-    if (k1, k2, vpu_k2) not in variants:
+    if (k1, k2, vpu_k2) not in _VARIANT_KEYS:
         raise ValueError(f"(k1, k2, vpu_k2) = {(k1, k2, vpu_k2)} is none of "
                          f"the probe's VARIANTS")
     if int(grid) != grid or grid < 0:
@@ -78,18 +86,16 @@ def _check(l, lt, r, r2, k1, k2, vpu_k2, grid) -> None:
         raise ValueError(f"l must be (KMAX, TB), got {tuple(l.shape)}")
     kmax, tb = l.shape
     p = r.shape[-1]
-    want = {"l": (kmax, tb), "lt": (tb, kmax), "r": (kmax, p),
-            "r2": (kmax, 2 * p)}
-    for name, t in zip(want, (l, lt, r, r2)):
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"{name} is {tuple(t.shape)}, must be "
-                             f"{want[name]}")
-        if t.dtype not in (torch.float32, torch.float64) or \
-                t.dtype != l.dtype:
+    dtype, device = l.dtype, l.device
+    for name, t, want in (("l", l, (kmax, tb)), ("lt", lt, (tb, kmax)),
+                          ("r", r, (kmax, p)), ("r2", r2, (kmax, 2 * p))):
+        if t.shape != want:
+            raise ValueError(f"{name} is {tuple(t.shape)}, must be {want}")
+        if t.dtype is not dtype or dtype not in _FLOATS:
             raise TypeError(f"{name} is {t.dtype}; the operands must all be "
                             "float32 (or all float64 for a reference)")
-        if t.device != l.device:
-            raise ValueError(f"{name} is on {t.device} but l on {l.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device} but l on {device}")
     if k1 + (k2 or 0) > kmax:
         raise ValueError(f"k1 + k2 = {k1 + (k2 or 0)} exceeds KMAX {kmax}")
 
@@ -126,8 +132,14 @@ def contraction_probe_plain(l: Tensor, lt: Tensor, r: Tensor, r2: Tensor, *,
     return out
 
 
-def _launch(l, lt, r, r2, k1, k2, vpu_k2, grid) -> Tensor:
-    from ._build import load_library
+def _launch(l, lt, r, r2, k1, k2, vpu_k2, grid, chunks=None) -> Tensor:
+    """The CUDA kernel on ``l``'s device, its grid steps split into the
+    library's number of chunks for the card (``qfa_kdepth_chunks``) across
+    blocks, the partials summed in chunk order. ``chunks`` overrides that
+    number; it exists for measurements and tests only (``chip_smoke.py``
+    and ``kdepth_variants.py`` time one chunk and every count, the
+    emulation test sums one step per chunk), and no entry point sets it."""
+    from . import _build
 
     kmax, tb = l.shape
     p = r.shape[1]
@@ -139,25 +151,41 @@ def _launch(l, lt, r, r2, k1, k2, vpu_k2, grid) -> Tensor:
     for name, t in zip(("l", "lt", "r", "r2"), (l, lt, r, r2)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    lib = _build.load_library()
+    index, stream = _build.device_and_stream(l.device)
+    variant = (tb, p, k1, k2 or 0, _MODE[vpu_k2], int(grid))
+    if chunks is None:
+        key = (lib, variant, index)
+        chunks = _CHUNKS.get(key) or _CHUNKS.setdefault(
+            key, _chunks(lib, variant, index))
     out = torch.empty((tb, p), dtype=torch.float32, device=l.device)
-    lib = load_library()
-    dev = l.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.qfa_kdepth_f32(
-            l.data_ptr(), lt.data_ptr(), r.data_ptr(), r2.data_ptr(),
-            out.data_ptr(), kmax, tb, p, k1, k2 or 0, _MODE[vpu_k2],
-            int(grid),
-            dev.index if dev.index is not None else torch.cuda.current_device(),
-            stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"CUDA kdepth kernel launch failed: error {rc} "
-            f"({lib.qfa_cuda_error_string(rc).decode()})")
+    part = torch.empty((chunks, tb, p), dtype=torch.float32,
+                       device=l.device) if chunks > 1 else None
+    _check_rc(lib, lib.qfa_kdepth_f32(
+        l.data_ptr(), lt.data_ptr(), r.data_ptr(), r2.data_ptr(),
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        0 if part is None else part.numel(), kmax, *variant, chunks,
+        index, stream))
     global LAUNCHES
     with _LAUNCH_LOCK:
         LAUNCHES += 1
     return out
+
+
+def _chunks(lib, variant, index) -> int:
+    """The library's number of chunks for ``variant`` = (TB, P, k1, k2 or
+    0, mode, grid) on device ``index``: the card's resident blocks over the
+    output tiles (``qfa_kdepth_chunks``)."""
+    n = ctypes.c_int(0)
+    _check_rc(lib, lib.qfa_kdepth_chunks(*variant, index, ctypes.byref(n)))
+    return n.value
+
+
+def _check_rc(lib, rc) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"CUDA kdepth kernel launch failed: error {rc} "
+            f"({lib.qfa_cuda_error_string(rc).decode()})")
 
 
 @torch.no_grad()
@@ -168,7 +196,7 @@ def contraction_probe(l: Tensor, lt: Tensor, r: Tensor, r2: Tensor, *,
     (KMAX, P) and ``r2`` (KMAX, 2P); returns the (TB, P) sum. CPU tensors
     run :func:`contraction_probe_plain`; CUDA tensors launch the CUDA
     kernel on the current stream, or raise (contiguous, TB a multiple of
-    32, P of 64)."""
+    64, P of 128)."""
     _check(l, lt, r, r2, k1, k2, vpu_k2, grid)
     if l.device.type == "cpu":
         return contraction_probe_plain(l, lt, r, r2, k1=k1, k2=k2,

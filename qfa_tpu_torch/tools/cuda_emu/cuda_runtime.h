@@ -1,5 +1,5 @@
 // CPU stand-in for the parts of the CUDA runtime and device language that
-// qfa_tpu_torch/csrc/epoch.cu, predict.cu and step.cu use, so that g++
+// qfa_tpu_torch/csrc/epoch.cu, predict.cu, step.cu and kdepth.cu use, so that g++
 // compiles the kernel sources themselves for the CPU
 // (qfa_tpu_torch/tools/emulate.py).
 // One std::thread per CUDA thread; the blocks of a launch run one after
@@ -8,7 +8,8 @@
 // its warp. Dynamic shared memory is filled with NaN before each block,
 // and an asynchronous copy (cp.async) lands only when its thread waits for
 // its group, so a read of a stage before its wait and barrier sees NaN or
-// stale data. Nothing here models a resource limit (registers, shared
+// stale data. The warp's m16n8k8 TF32 tensor-core product follows the PTX
+// ISA's fragment layout. Nothing here models a resource limit (registers, shared
 // memory, block residency): the occupancy query answers 1 block on each
 // of 2 SMs, so a persistent grid walks several tiles per block.
 #pragma once
@@ -16,6 +17,7 @@
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstring>
 #include <deque>
 #include <limits>
@@ -31,7 +33,9 @@
 struct uint3s { unsigned x = 0, y = 0, z = 0; };
 inline thread_local uint3s threadIdx;
 inline uint3s blockIdx, gridDim, blockDim;
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 typedef int cudaError_t;
 const int cudaSuccess = 0, cudaErrorInvalidValue = 1,
@@ -77,6 +81,8 @@ inline float __fsub_rn(float x, float y) { return x - y; }
 inline float __fmul_rn(float x, float y) { return x * y; }
 inline float __fdiv_rn(float x, float y) { return x / y; }
 inline float __fsqrt_rn(float x) { return std::sqrt(x); }
+inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); return u; }
+inline float __uint_as_float(unsigned u) { float x; std::memcpy(&x, &u, 4); return x; }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 template <class T> inline T __ldcg(const T* p) { return *p; }
 template <class T> inline T __ldg(const T* p) { return *p; }
@@ -155,3 +161,32 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
 // every warp of the block reaches the same __syncwarp calls, so a block
 // barrier stands in for the warp barrier
 inline void __syncwarp(unsigned = 0xffffffffu) { __syncthreads(); }
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, d += A B, by the
+// calling warp: every lane deposits its fragments (two slot sets used in
+// turn, so one warp barrier per product), then computes its own four
+// outputs from all 32 lanes' fragments, in the PTX ISA's layout (g = lane /
+// 4, t = lane % 4): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
+// t + 4); b0 (k t, n g), b1 (k t + 4, n g); d0, d1 (g, 2t and 2t + 1), d2,
+// d3 (g + 8, 2t and 2t + 1). The tensor cores read the 19 TF32 bits of an
+// operand; a product of two is exact in float, summed here in k order.
+struct EmuMmaSlot { uint32_t a[4], b[2]; };
+inline EmuMmaSlot g_mma[2][1024];
+inline thread_local int g_mma_turn = 0;
+inline void emu_mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                 uint32_t b0, uint32_t b1) {
+  EmuMmaSlot* slots = g_mma[g_mma_turn];
+  g_mma_turn ^= 1;
+  slots[threadIdx.x] = {{a[0], a[1], a[2], a[3]}, {b0, b1}};
+  emu_warp_sync();
+  const EmuMmaSlot* w = slots + (threadIdx.x & ~31u);
+  const unsigned lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  auto tf32 = [](uint32_t u) { return __uint_as_float(u & 0xffffe000u); };
+  for (unsigned e = 0; e < 4; ++e) {
+    const unsigned row = g + 8 * (e >> 1), col = 2 * t + (e & 1);
+    float acc = d[e];
+    for (unsigned k = 0; k < 8; ++k)
+      acc += tf32(w[(row & 7) * 4 + (k & 3)].a[(row >> 3) + 2 * (k >> 2)]) *
+             tf32(w[col * 4 + (k & 3)].b[k >> 2]);
+    d[e] = acc;
+  }
+}

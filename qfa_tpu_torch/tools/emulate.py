@@ -4,19 +4,22 @@
     lib = emulate.load(emulate.build(out_dir, nhs=(3, 8)))
     lib = emulate.load(emulate.build(out_dir, nhs=(3, 8), source="predict.cu"))
     lib = emulate.load(emulate.build(out_dir, nhs=(3, 8), source="step.cu"))
+    lib = emulate.load(emulate.build(out_dir, source="kdepth.cu"))
 
-:func:`build` compiles ``csrc/epoch.cu``, ``csrc/predict.cu`` or
-``csrc/step.cu`` itself with g++ against the stand-in headers in
-``tools/cuda_emu`` (one std::thread per CUDA thread, the blocks of a
-launch one after another, ``__syncthreads`` a barrier, an asynchronous
-copy landing when its thread waits for it) into a shared library with the
-kernel's C interface; :func:`load` binds it with the CUDA library's ctypes
-signatures, and :func:`installed` puts it behind the CUDA wrappers
-(``_launch`` of ``ops.epoch_kernel``, ``ops.infer_kernel`` and
-``ops.fused_step``) so that they run it on CPU tensors. This checks a
-kernel's indexing, tiling, ring of copies, reductions and arrival counters
-where there is no card and no CUDA compiler; it checks no resource limit
-(registers, shared memory) and no timing. Needs g++ with C++20.
+:func:`build` compiles ``csrc/epoch.cu``, ``csrc/predict.cu``,
+``csrc/step.cu`` or ``csrc/kdepth.cu`` itself with g++ against the
+stand-in headers in ``tools/cuda_emu`` (one std::thread per CUDA thread,
+the blocks of a launch one after another, ``__syncthreads`` a barrier, an
+asynchronous copy landing when its thread waits for it, the warp's
+m16n8k8 TF32 tensor-core product in the PTX ISA's fragment layout) into a
+shared library with the kernel's C interface; :func:`load` binds it with
+the CUDA library's ctypes signatures, and :func:`installed` puts it
+behind the CUDA wrappers (``_launch`` of ``ops.epoch_kernel``,
+``ops.infer_kernel``, ``ops.fused_step`` and ``ops.kdepth``) so that they
+run it on CPU tensors. This checks a kernel's indexing, tiling, fragment
+layouts, ring of copies, reductions and arrival counters where there is
+no card and no CUDA compiler; it checks no resource limit (registers,
+shared memory) and no timing. Needs g++ with C++20.
 """
 
 from __future__ import annotations
@@ -74,6 +77,8 @@ def load(path) -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = restype
+    if not hasattr(lib, "qfa_cuda_error_string"):  # predict.cu's
+        lib.qfa_cuda_error_string = lambda code: b"emulated CUDA error"
     return lib
 
 

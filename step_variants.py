@@ -100,22 +100,7 @@ STAGES = ("forward", "backward", "finish")
 
 def build(names, tmp: Path) -> dict:
     """One library per variant of step.cu, every nvcc started at once."""
-    src = (_build.CSRC / "step.cu").read_text()
-    texts = {}
-    for name in names:
-        text = src
-        missing = [old for old, _ in VARIANTS[name][1] if old not in text]
-        if missing:
-            print(f"variant {name}: text not in step.cu: {missing[0][:60]!r}",
-                  flush=True)
-            continue
-        for old, new in VARIANTS[name][1]:
-            text = text.replace(old, new, 1)
-        texts[name] = re.sub(
-            r"    case (\d+): return run<\1>",
-            lambda m: m[0] if m[1] == "8" else
-            f"    case {m[1]}: return cudaErrorInvalidValue; //", text)
-    return ev.build_sources(texts, tmp)
+    return ev.build_variants("step.cu", VARIANTS, names, tmp, ev.nh8_only)
 
 
 def host_parts(params, batch) -> None:

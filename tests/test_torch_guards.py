@@ -407,12 +407,14 @@ def test_epoch_kernel_wrapper_takes_bf16_planes():
 
 
 @pytest.mark.parametrize("fn", ["qfa_train_epoch", "qfa_step_f32",
-                                "qfa_predict_f32", "qfa_predict_occupancy"])
+                                "qfa_predict_f32", "qfa_predict_occupancy",
+                                "qfa_kdepth_f32", "qfa_kdepth_chunks"])
 def test_ctypes_signature_matches_the_c_entry_point(fn):
     """Each C entry point takes as many parameters as its ctypes
     signature lists (a missing one shifts every later pointer)."""
     src = "".join((_build.CSRC / s).read_text()
-                  for s in ("epoch.cu", "step.cu", "predict.cu"))
+                  for s in ("epoch.cu", "step.cu", "predict.cu",
+                            "kdepth.cu"))
     params = re.search(rf"\bint {fn}\(([^)]*)\)", src)[1]
     argtypes, _ = _build.SIGNATURES[fn]
     assert len(argtypes) == len(params.split(","))

@@ -32,7 +32,9 @@ made from a seed:
    its float32 stats bitwise unchanged;
 4. main path: ``qfa_tpu_torch.cli.main(["--type", "predict", ...])`` on
    2048 spectra written to disk, checked against the plain path on the
-   CPU;
+   CPU; the CLI must have read them with the native npz reader
+   (``qfa_tpu_torch.native``), whose arrays must equal the Python pool's
+   bitwise; both readers' seconds on the same files;
 5. serving: ``QFAPredictor(device="cuda")`` behind its HTTP server;
 6. times of the kernel and the plain version at 65536 spectra (a survey
    sweep), 8192 (the predict CLI's chunk), 64 (serving's max_batch) and 1,
@@ -51,7 +53,8 @@ made from a seed:
    seed, then the same pair with ``TRAIN.BF16_PLANES``; the CLI once
    more with ``TRAIN.ENGINE xla`` (``train.fit``, no epoch kernel); then
    ``--type predict`` from the trained model through the prediction
-   kernel;
+   kernel; the training files read by the native reader (checked) and
+   again by both readers, bitwise equal, with their seconds;
 9. times of one training epoch of 65536 spectra, kernel and plain (bf16
    and f32 operands, and bf16 operands on bf16 planes), the two epochs'
    outputs held against each other as in phase 7; then one kernel epoch
@@ -131,7 +134,19 @@ made from a seed:
     counted. Readings: the sweep's time per call on bf16 and float32
     planes, full output at 65,536 spectra in the four (plane, output)
     dtype pairs, the resident functions' times, peak device memory and
-    the top-1,024 overlap of bf16 and float32 planes.
+    the top-1,024 overlap of bf16 and float32 planes;
+19. the reference-API facade, profiling, NaN debugging and the MDN:
+    ``compat.Dataloader`` over 2048 SDSS spectra on disk, moved to the
+    card, and ``compat.QFA(device="cuda").train(engine="auto")`` for 2
+    epochs on the epoch kernel (launches counted), its losses held
+    against ``fit_fused(plain=True)`` on the same data and seed, its
+    single-spectrum prediction on the card against the CPU; the training
+    CLI with ``RUNTIME.PROFILE_DIR`` (outputs bitwise unchanged; the
+    written trace holds each of the epoch kernel's three kernels once
+    per batch) and ``RUNTIME.DEBUG_NANS`` (outputs bitwise unchanged; a
+    NaN in the ``--resume`` parameters raises ``FloatingPointError``);
+    ``fit_mdn`` on the card (losses finite and falling) and
+    ``sample_mock_continua`` (shapes, finite).
 
 Prints a JSON line of kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -708,8 +723,12 @@ def phase_cli(root, ckpt, data_dir, catalog, names, grid):
     launches = infer_kernel.LAUNCHES - before
     check(launches >= 1, "CLI predict launched no kernel")
     check(timing["n"] == len(names), f"CLI predicted {timing['n']} spectra")
+    check_native_read(timing, "CLI predict")
     with open(os.path.join(out, "log.txt")) as f:
-        check("fused CUDA kernel" in f.read(), "CLI did not take the kernel")
+        log = f.read()
+    check("fused CUDA kernel" in log, "CLI did not take the kernel")
+    check("with the native npz reader" in log,
+          "CLI predict's log does not name the native reader")
     outputs = {}
     for name in names:
         with np.load(os.path.join(out, "predict", name)) as r:
@@ -1130,6 +1149,9 @@ def phase_train_cli(root, grid, n=2048, epochs=4):
     run_k = cli.main(base + ["--output_dir", out_k] + opts)
     launches = epoch_kernel.LAUNCHES  # ... to here
     check(launches >= 1, "CLI train launched no epoch kernel")
+    check_native_read(run_k, "CLI train")
+    run_k["reads"] = read_engines(
+        [os.path.join(data_dir, name) for name in names])
     check(infer_kernel.LAUNCHES == 0, "CLI train launched the predict kernel")
     check(run_k["engine"] == "kernel", f"CLI train engine {run_k['engine']}")
     with open(os.path.join(out_k, "log.txt")) as f:
@@ -2840,6 +2862,218 @@ def phase_sweep(device, smi):
             "bound": bf16["bound"][:2]}
 
 
+def read_engines(paths):
+    """The same npz files through the native reader and the Python pool
+    (``data.loader.read_spectra``): every array bitwise equal, dtypes
+    included. Returns (native s, Python s) by the host clock."""
+    from qfa_tpu_torch.data.loader import read_spectra
+
+    t0 = time.perf_counter()
+    nat = read_spectra(paths, engine="native")
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = read_spectra(paths, engine="python")
+    t_py = time.perf_counter() - t0
+    for name, a, b in zip(("flux", "error", "mask", "zqso", "flux_ok"), nat,
+                          py):
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"the native reader's {name} differs from the Python pool's")
+    return t_nat, t_py
+
+
+def check_native_read(run, what):
+    """A CLI run read its spectra through the native reader."""
+    from qfa_tpu_torch import native
+
+    check(run["read_engine"] == "native",
+          f"{what} read with the {run['read_engine']} reader, not the "
+          f"native one ({native.build_error()})")
+
+
+#: phase 19's facade run: 2048 SDSS spectra at batch 500 for 2 epochs,
+#: Nh 8; the per-epoch losses of QFA.train(engine="auto") (the epoch
+#: kernel, float32 operands: the facade's TrainConfig) against
+#: fit_fused(plain=True) on the same data and seed to CLI_LOSS_RTOL
+FACADE_N, FACADE_EPOCHS, FACADE_BATCH = 2048, 2, 500
+#: phase 19's MDN fit: 4096 conditions (z, lum) -> an Nh-dim latent
+MDN_N, MDN_STEPS = 4096, 300
+
+
+def trace_kernel_counts(log_dir):
+    """Launches by kernel short name (``forward_kernel``, ...) among the
+    device kernel events of the one Chrome trace in ``log_dir``."""
+    import glob
+
+    files = glob.glob(os.path.join(log_dir, "*.json"))
+    check(len(files) == 1, f"{log_dir} holds {len(files)} traces, not 1")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {}
+    for e in events:
+        short = re.search(r"\w+_kernel", e.get("name", "")) \
+            if e.get("cat") == "kernel" else None
+        if short:
+            counts[short[0]] = counts.get(short[0], 0) + 1
+    return counts
+
+
+def phase_facade(root, grid):
+    """The reference-API facade, the CLI's profiling and NaN debugging,
+    and the MDN, on the card (phase 19). Returns the phase's readings."""
+    from qfa_tpu_torch import cli, compat, native
+    from qfa_tpu_torch.config import load_config
+    from qfa_tpu_torch.models.mdn import MDNConfig, fit_mdn, \
+        sample_mock_continua
+    from qfa_tpu_torch.models.params import random_init, save_npz
+    from qfa_tpu_torch.ops import epoch_kernel, fused_step, infer_kernel
+    from qfa_tpu_torch.utils.profiling import nan_debugging
+
+    r = {}
+    n, epochs, batch = FACADE_N, FACADE_EPOCHS, FACADE_BATCH
+    catalog, data_dir, names = write_training_survey(root, grid, n)
+
+    # 1. compat.Dataloader and QFA(device="cuda").train(engine="auto")
+    reads = native.READS
+    t0 = time.perf_counter()
+    dl = compat.Dataloader(load_config(opts=[
+        "TYPE", "train", "DATA.CATALOG", catalog, "DATA.DATA_DIR", data_dir,
+        "DATA.DATA_NUM", str(n), "DATA.BATCH_SIZE", str(batch)]), seed=SEED)
+    dl.set_device("cuda")
+    r["load_s"] = time.perf_counter() - t0
+    check(native.READS == reads + 1, "compat.Dataloader did not read "
+          "through the native reader")
+    check(dl.residuals().delta.device.type == "cuda",
+          "Dataloader.set_device did not move the residuals")
+    model = compat.QFA(dl.Nb, dl.Nr, NH, device="cuda", seed=SEED)
+    seen = {}
+    real = compat.fit_fused
+
+    def spy(*args, **kw):  # the facade's own call, kept for the plain run
+        seen.update(args=args, kw=kw)
+        out = real(*args, **kw)
+        seen["history"] = out[1]
+        return out
+
+    compat.fit_fused = spy
+    try:
+        epoch_kernel.LAUNCHES = 0  # the facade path is counted from here
+        t0 = time.perf_counter()
+        model.train(dataloader=dl, n_epochs=epochs, quiet=True,
+                    output_dir=os.path.join(root, "facade"), engine="auto")
+        torch.cuda.synchronize()
+        r["train_s"] = time.perf_counter() - t0
+        r["launches"] = epoch_kernel.LAUNCHES  # ... to here
+    finally:
+        compat.fit_fused = real
+    check("history" in seen, "QFA.train(engine='auto') on the card did not "
+          "run fit_fused")
+    check(r["launches"] == epochs, f"QFA.train launched the epoch kernel "
+          f"{r['launches']} times for {epochs} epochs")
+    check(infer_kernel.LAUNCHES == 0 and fused_step.LAUNCHES == 0,
+          "QFA.train launched another kernel")
+    _, hp = real(*seen["args"], **dict(
+        seen["kw"], output_dir=os.path.join(root, "facade_plain"),
+        plain=True))
+    check(epoch_kernel.LAUNCHES == r["launches"],
+          "fit_fused(plain=True) launched the epoch kernel")
+    hk, hp = np.asarray(seen["history"]), np.asarray(hp)
+    r["loss_rel"] = float(np.max(np.abs(hk - hp) / np.abs(hp)))
+    r["history"] = hk.tolist()
+    check(r["loss_rel"] <= CLI_LOSS_RTOL, f"QFA.train losses {hk} against "
+          f"fit_fused(plain=True) {hp}: {r['loss_rel']:.3g}")
+    # the single-spectrum prediction on the card against the CPU
+    cpu = compat.QFA(dl.Nb, dl.Nr, NH, device="cpu", model_params={
+        k: v.cpu() for k, v in model.parameters.items()})
+    cpu.mu = model.mu.cpu()
+    row = dl[11][:4]
+    got = model.prediction_for_single_spectra(*row)
+    want = cpu.prediction_for_single_spectra(*(x.cpu() for x in row))
+    check(tuple(got[1].shape) == (NH, 1), "hmean is not an (Nh, 1) column")
+    for field, a, b in zip(("ll", "hmean", "hcov", "continuum",
+                            "continuum_std"), got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                   err_msg=f"facade prediction {field}, card "
+                                   "against CPU", **TOL[field])
+
+    # 2-3. the CLI with RUNTIME.PROFILE_DIR and RUNTIME.DEBUG_NANS
+    base = ["--type", "train", "--catalog", catalog, "--data_dir", data_dir,
+            "--data_num", str(n), "--batch_size", str(batch), "--n_epochs",
+            str(epochs), "--seed", str(SEED), "--device", "cuda"]
+
+    def cli_run(name, *opts):
+        out = os.path.join(root, name)
+        run = cli.main(base + ["--output_dir", out]
+                       + (["--opts", *opts] if opts else []))
+        check_native_read(run, f"CLI train ({name})")
+        with np.load(os.path.join(out, "model_parameters.npz")) as f:
+            run["model"] = {k: f[k] for k in f.files}
+        return run
+
+    def same(a, b):
+        return a["history"] == b["history"] and all(
+            np.array_equal(a["model"][k], b["model"][k]) for k in a["model"])
+
+    plain = cli_run("cli_plain")
+    n_batches = -(-n // batch) * epochs
+    for tries in range(1, PROFILE_TRIES + 1):
+        prof_dir = os.path.join(root, f"profile{tries}")
+        before = epoch_kernel.LAUNCHES
+        traced = cli_run(f"cli_traced{tries}", "RUNTIME.PROFILE_DIR",
+                         prof_dir)
+        check(epoch_kernel.LAUNCHES - before == epochs,
+              "the profiled CLI train did not launch the epoch kernel")
+        check(same(traced, plain), "tracing changed the CLI train's outputs")
+        counts = trace_kernel_counts(prof_dir)
+        # a trace loses a launch's event now and then (phase 9): again
+        if all(counts.get(k) == n_batches for k in EPOCH_STAGES):
+            break
+    r["trace"], r["trace_tries"] = counts, tries
+    check(all(counts.get(k) == n_batches for k in EPOCH_STAGES),
+          f"the PROFILE_DIR trace holds {counts}, not {n_batches} of each "
+          f"of {EPOCH_STAGES}")
+    debug = cli_run("cli_debug_nans", "RUNTIME.DEBUG_NANS", "True")
+    check(same(debug, plain), "RUNTIME.DEBUG_NANS changed the CLI train's "
+          "outputs on finite data")
+    bad = random_init(grid.npix, grid.nb, NH,
+                      generator=torch.Generator().manual_seed(SEED))
+    bad.F.data[7, 3] = float("nan")
+    nan_init = os.path.join(root, "nan_init.npz")
+    save_npz(nan_init, bad, np.ones(grid.npix, np.float32))
+    try:
+        cli.main(base + ["--output_dir", os.path.join(root, "cli_nan"),
+                         "--resume", nan_init, "--opts",
+                         "RUNTIME.DEBUG_NANS", "True"])
+        r["nan_error"] = None
+    except FloatingPointError as e:
+        r["nan_error"] = str(e)
+    check(r["nan_error"] is not None, "RUNTIME.DEBUG_NANS with a NaN in "
+          "the initial parameters did not raise FloatingPointError")
+    check(not nan_debugging(), "NaN debugging stayed on after the CLI run")
+
+    # 4. the MDN on the card: losses finite and falling; mock continua
+    rng = np.random.default_rng(SEED)
+    cond = np.stack([rng.uniform(2.0, 3.5, MDN_N),
+                     rng.uniform(-1.0, 1.0, MDN_N)], 1).astype(np.float32)
+    h = (cond @ rng.normal(size=(2, NH))
+         + 0.3 * rng.normal(size=(MDN_N, NH))).astype(np.float32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    mdn_cfg = MDNConfig(cond_dim=2, out_dim=NH)
+    t0 = time.perf_counter()
+    mdn, info = fit_mdn(gen, cond, h, mdn_cfg, n_steps=MDN_STEPS,
+                        device="cuda")
+    r["mdn_s"] = time.perf_counter() - t0
+    r["mdn_losses"] = info["losses"]
+    check(bool(np.isfinite(info["losses"]).all())
+          and info["losses"][-1] < info["losses"][0],
+          f"fit_mdn losses {info['losses']} are not finite and falling")
+    cont = sample_mock_continua(mdn, gen, cond[:16], model.parameters["F"],
+                                model.mu, 4, mdn_cfg, info)
+    check(tuple(cont.shape) == (4, 16, grid.npix) and cont.is_cuda
+          and bool(torch.isfinite(cont).all()),
+          f"sample_mock_continua gave {tuple(cont.shape)}")
+    return r
+
+
 def turns(runs, reps):
     """Median ms per call of each of ``runs`` by CUDA events (after one
     warm-up call each), timed in turns: in order, then in reverse."""
@@ -2991,10 +3225,16 @@ def main(argv=None):
             cli_launches, timing, n_sample = phase_cli(
                 root, ckpt, data_dir, catalog, names, grid)
             say(f"phase 4 CLI predict: {timing['n']} spectra, read "
-                f"{timing['read_s']:.3f} s, device "
+                f"{timing['read_s']:.3f} s ({timing['read_engine']} "
+                f"reader), device "
                 f"{timing['predict_s']:.3f} s, write "
                 f"{timing['write_s']:.3f} s; {cli_launches} launch(es); "
                 f"{n_sample} spectra match the CPU plain path")
+            t_nat, t_py = read_engines(
+                [os.path.join(data_dir, name) for name in names])
+            say(f"  the same {len(names)} files read again ({smi}, host "
+                f"clock): native reader {t_nat:.4f} s, Python pool "
+                f"{t_py:.4f} s ({t_py / t_nat:.1f}x); arrays bitwise equal")
             serve_launches, latencies, pred, responses = phase_serving(
                 ckpt, raw)
             main_launches = infer_kernel.LAUNCHES  # ... to here
@@ -3054,6 +3294,12 @@ def main(argv=None):
                 f"{[round(x, 4) for x in run_b['history']]} match "
                 f"fit_fused(plain=True) on the same bf16 planes to "
                 f"{rel_b:.2e}; phase {time.perf_counter() - t0:.1f} s")
+            t_nat, t_py = run_k["reads"]
+            say(f"  CLI train read its {run_k['n']} spectra with the "
+                f"{run_k['read_engine']} reader; the same files read again "
+                f"({smi}, host clock): native reader {t_nat:.4f} s, Python "
+                f"pool {t_py:.4f} s ({t_py / t_nat:.1f}x); arrays bitwise "
+                "equal")
 
     if want(9):
         ttimes, tn, n_batches, tb = phase_train_times(device)
@@ -3227,6 +3473,30 @@ def main(argv=None):
         say("phase 18 survey OOD sweep (B1b, A3b):")
         sweep = phase_sweep(device, smi)
         say(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
+
+    if want(19):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_facade_") as root:
+            zero_counts()
+            fr = phase_facade(root, grid)
+        say(f"phase 19 facade, profiling, NaN debugging, MDN: "
+            f"compat.Dataloader read {FACADE_N} SDSS spectra (native "
+            f"reader) and moved them to the card in {fr['load_s']:.3f} s; "
+            f"QFA(device='cuda').train(engine='auto'), {FACADE_EPOCHS} "
+            f"epochs at batch {FACADE_BATCH}: {fr['launches']} epoch-kernel "
+            f"call(s), {fr['train_s']:.3f} s, losses "
+            f"{[round(x, 4) for x in fr['history']]} match "
+            f"fit_fused(plain=True) to {fr['loss_rel']:.2e}; "
+            "prediction_for_single_spectra on the card within TOL of the "
+            "CPU; CLI train with RUNTIME.PROFILE_DIR: outputs bitwise "
+            f"unchanged, its trace holds {fr['trace']} (trace "
+            f"{fr['trace_tries']} of at most {PROFILE_TRIES}); "
+            "RUNTIME.DEBUG_NANS: outputs bitwise unchanged on finite data, "
+            f"a NaN init raised FloatingPointError ({fr['nan_error']}); "
+            f"fit_mdn {MDN_STEPS} steps on the card in {fr['mdn_s']:.3f} s, "
+            f"losses {[round(x, 3) for x in fr['mdn_losses']]}; "
+            "sample_mock_continua finite; phase "
+            f"{time.perf_counter() - t0:.1f} s")
 
     if only:
         say(f"partial run of phases 1, 2 and {sorted(only)}: no kernels "

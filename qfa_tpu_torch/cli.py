@@ -231,27 +231,58 @@ def resident_layout(dataset, residuals, grid, device):
                            loglam=loglam_row(grid.wav, device=device))
 
 
+@contextlib.contextmanager
+def _runtime_hooks(cfg: ConfigNode, device):
+    """``RUNTIME.DEBUG_NANS`` and ``RUNTIME.PROFILE_DIR`` around a training
+    run, as ``qfa_tpu.cli`` honors them: NaN debugging on for the run
+    (``utils.profiling.enable_nan_debugging``; the previous setting comes
+    back after it), and a ``torch.profiler`` trace of the whole run
+    written into ``PROFILE_DIR`` (``utils.profiling.trace``)."""
+    import logging
+
+    from .utils.profiling import enable_nan_debugging, nan_debugging, trace
+
+    before = nan_debugging()
+    if cfg.RUNTIME.DEBUG_NANS:
+        enable_nan_debugging(True)
+    try:
+        if cfg.RUNTIME.PROFILE_DIR:
+            with trace(cfg.RUNTIME.PROFILE_DIR, device=device):
+                yield
+            logging.getLogger("qfa_tpu_torch").info(
+                "profiler trace written to %s", cfg.RUNTIME.PROFILE_DIR)
+        else:
+            yield
+    finally:
+        enable_nan_debugging(before)
+
+
 def run_train(cfg: ConfigNode) -> dict:
     """Train on ``DATA.CATALOG``: resume from the newest full state in the
     run directory, else ``MODEL.RESUME``, else a random init from ``SEED``;
     write ``metrics.jsonl``, the checkpoints and ``model_parameters.npz``.
-    Returns the spectrum count, the per-epoch loss history, the engine, and
-    the wall seconds spent loading and training."""
+    ``RUNTIME.DEBUG_NANS`` raises ``FloatingPointError`` at the first
+    non-finite loss or state; ``RUNTIME.PROFILE_DIR`` traces the run.
+    Returns the spectrum count, the per-epoch loss history, the engine,
+    the reader's engine, and the wall seconds spent loading and
+    training."""
+    from .utils.device import resolve_device
+
+    device = _rank_device(resolve_device(cfg.RUNTIME.DEVICE))
+    with _runtime_hooks(cfg, device):
+        return _train(cfg, device)
+
+
+def _train(cfg: ConfigNode, device) -> dict:
     import torch
 
+    from . import native
     from .data.grid import make_grid
     from .models import load_npz, random_init, save_npz
     from .train import fit, fit_fused
     from .train.checkpoint import latest_checkpoint, load_state
-    from .utils.device import resolve_device
     from .utils.logging import MetricsWriter, setup_run_dir
 
-    device = _rank_device(resolve_device(cfg.RUNTIME.DEVICE))
-    for key in ("PROFILE_DIR", "DEBUG_NANS"):
-        if cfg.RUNTIME[key]:
-            raise NotImplementedError(
-                f"RUNTIME.{key} is not ported yet (ROADMAP A8: the port's "
-                "profiling goes through torch.profiler)")
     rank, world = _rank()
     out = setup_run_dir(cfg.DATA.OUTPUT_DIR, cfg if rank == 0 else None)
     logger = _rank_logger(out)
@@ -259,19 +290,22 @@ def run_train(cfg: ConfigNode) -> dict:
     mesh = _build_mesh(cfg, cfg.DATA.BATCH_SIZE, logger, device) \
         if world > 1 else None
     if mesh is None and rank:
-        return {"n": 0, "history": [], "engine": "idle", "read_s": 0.0,
+        return {"n": 0, "history": [], "engine": "idle",
+                "read_engine": None, "read_s": 0.0,
                 "train_s": 0.0}  # rank 0 trains alone
 
     t_read = time.time()
+    reads = native.READS
     # with a mesh every rank reads the whole set and keeps its own rows
     dataset, mu, residuals, val_residuals = _load_training_data(
         cfg, grid, "cpu" if mesh is not None else device)
+    read_engine = "native" if native.READS > reads else "python"
     if val_residuals is not None:
         val_residuals = val_residuals._replace(**{
             k: getattr(val_residuals, k).to(device)
             for k in ("delta", "error", "zabs", "mask")})
-    logger.info("loaded %d spectra (grid npix=%d nb=%d)", dataset.size,
-                grid.npix, grid.nb)
+    logger.info("loaded %d spectra (grid npix=%d nb=%d) with the %s npz "
+                "reader", dataset.size, grid.npix, grid.nb, read_engine)
 
     # resume priority: (1) the newest full state in the run directory
     # (params, Adam moments, epoch), (2) MODEL.RESUME (params only),
@@ -398,6 +432,7 @@ def run_train(cfg: ConfigNode) -> dict:
         "n": dataset.size,
         "history": history,
         "engine": "kernel" if use_kernel else "fit",
+        "read_engine": read_engine,
         "read_s": t0 - t_read,
         "train_s": t_end - t0,
     }
@@ -406,8 +441,10 @@ def run_train(cfg: ConfigNode) -> dict:
 def run_predict(cfg: ConfigNode) -> dict:
     """Predict every spectrum of ``DATA.CATALOG`` with the ``MODEL.RESUME``
     checkpoint; write the per-spectrum npz files (or one consolidated
-    file). Returns the spectrum count and the wall seconds spent reading,
-    predicting (host-device copies included) and writing."""
+    file). Returns the spectrum count, the reader's engine (``native`` or
+    ``python``, ``data.loader.read_spectra``) and the wall seconds spent
+    reading, predicting (host-device copies included) and writing."""
+    from . import native
     from .data.grid import make_grid
     from .data.loader import SpectraDataset, read_predict_catalog
     from .infer.predict import (
@@ -431,13 +468,17 @@ def run_predict(cfg: ConfigNode) -> dict:
     mesh = _build_mesh(cfg, None, logger, device) \
         if fused and world > 1 else None
     if mesh is None and rank:
-        return {"n": 0, "read_s": 0.0, "predict_s": 0.0,
-                "write_s": 0.0}  # rank 0 predicts alone
+        return {"n": 0, "read_engine": None, "read_s": 0.0,
+                "predict_s": 0.0, "write_s": 0.0}  # rank 0 predicts alone
     grid = make_grid(cfg.DATA.LAMMIN, cfg.DATA.LAMMAX, cfg.DATA.LOGLAM_DELTA)
 
     t_read = time.time()
+    reads = native.READS
     paths = read_predict_catalog(cfg.DATA.CATALOG, cfg.DATA.DATA_DIR)
     dataset = SpectraDataset.from_paths(paths, max_workers=cfg.DATA.NPROCS)
+    read_engine = "native" if native.READS > reads else "python"
+    logger.info("read %d spectra with the %s npz reader", dataset.size,
+                read_engine)
     params, mu = load_npz(cfg.MODEL.RESUME,
                           compat_c0_bug=cfg.MODEL.COMPAT_C0_BUG, device=device)
     t0 = time.time()
@@ -454,8 +495,9 @@ def run_predict(cfg: ConfigNode) -> dict:
         )
     t_write = time.time()
     if rank:  # rank 0 writes
-        return {"n": dataset.size, "read_s": t0 - t_read,
-                "predict_s": t_write - t0, "write_s": 0.0}
+        return {"n": dataset.size, "read_engine": read_engine,
+                "read_s": t0 - t_read, "predict_s": t_write - t0,
+                "write_s": 0.0}
     if cfg.RUNTIME.CONSOLIDATED_PREDICT:
         write_consolidated_npz(
             result, dataset.paths, os.path.join(out, "predictions.npz")
@@ -471,6 +513,7 @@ def run_predict(cfg: ConfigNode) -> dict:
     print(f"Finish predicting {dataset.size} spectra in {dt:.2f} seconds...")
     return {
         "n": dataset.size,
+        "read_engine": read_engine,
         "read_s": t0 - t_read,
         "predict_s": t_write - t0,
         "write_s": t_end - t_write,

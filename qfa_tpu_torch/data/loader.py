@@ -13,12 +13,14 @@ indices (:func:`batch_indices`, :func:`epoch_indices`, drawn from a
 ``torch.Generator`` or given as a permutation) and
 :meth:`ResidualDataset.gather`. Same semantics as
 ``qfa_tpu.data.loader``; catalogs are read with the ``csv`` module (no
-pandas). The C++ npz reader is not ported yet.
+pandas). :func:`read_spectra` reads through the C++ thread-pool reader
+(``qfa_tpu_torch.native``) when it builds, else through the Python pool.
 """
 
 from __future__ import annotations
 
 import csv
+import logging
 import os
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -55,6 +57,8 @@ __all__ = [
 
 MISSING = -999.0
 
+_FALLBACK_LOGGED = False  #: the auto engine's fallback warned once
+
 
 def read_spectrum(
     path: str,
@@ -77,13 +81,41 @@ def read_spectrum(
 
 
 def read_spectra(
-    paths: Sequence[str], max_workers: int = 16
+    paths: Sequence[str], max_workers: int = 16, engine: str = "auto"
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Read many spectra concurrently into stacked arrays.
 
     Returns (flux, error, mask, zqso, flux_ok) with shapes (N, Npix) x3,
     (N,), (N, Npix).
+
+    ``engine``: ``"native"`` reads through the C++ thread-pool reader
+    (``qfa_tpu_torch.native``, built at first use; raises if it cannot be
+    built), ``"python"`` through a ``ThreadPoolExecutor`` of ``np.load``,
+    and ``"auto"`` through the native reader when it builds, else through
+    the Python pool, logging the compiler's message once. Both give
+    bitwise equal arrays. Npix is the first file's flux length; the
+    native reader refuses files of another length, as the Python pool
+    fails to stack them.
     """
+    if engine not in ("auto", "native", "python"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine in ("auto", "native") and len(paths):
+        from .. import native
+
+        if native.native_available():
+            with np.load(paths[0]) as probe:
+                npix = int(probe["flux"].shape[0])
+            return native.read_spectra_native(paths, npix, max_workers)
+        if engine == "native":
+            raise RuntimeError(
+                f"native reader requested but unavailable: "
+                f"{native.build_error()}")
+        global _FALLBACK_LOGGED
+        if not _FALLBACK_LOGGED:
+            _FALLBACK_LOGGED = True
+            logging.getLogger(__name__).warning(
+                "native npz reader unavailable, reading with the Python "
+                "pool: %s", native.build_error())
     from ..utils.progress import progress
 
     with ThreadPoolExecutor(max_workers=max_workers) as pool:

@@ -28,7 +28,9 @@ Tensor = torch.Tensor
 __all__ = [
     "QFAParams",
     "ParamBounds",
+    "DEFAULT_BOUNDS",
     "PARAM_NAMES",
+    "num_params",
     "random_init",
     "clip_params",
     "smooth_params",
@@ -97,6 +99,11 @@ class QFAParams(nn.Module):
             for k in PARAM_NAMES
         })
 
+    def as_dict(self) -> dict:
+        """Name -> tensor (detached, on the parameters' device), the JAX
+        package's ``QFAParams.as_dict``."""
+        return {k: getattr(self, k).detach() for k in PARAM_NAMES}
+
     def to_numpy(self) -> dict:
         """The parameters as a name -> float32 numpy array dict (the inverse
         of :meth:`from_numpy`)."""
@@ -117,6 +124,9 @@ class ParamBounds(NamedTuple):
     beta_max: float = 5.0
     c0_min: float = -5.0
     c0_max: float = 5.0
+
+
+DEFAULT_BOUNDS = ParamBounds()
 
 
 def random_init(
@@ -145,7 +155,7 @@ def random_init(
 
 
 def clip_params(params: QFAParams,
-                bounds: ParamBounds = ParamBounds()) -> QFAParams:
+                bounds: ParamBounds = DEFAULT_BOUNDS) -> QFAParams:
     """Project the parameters back into their numerical-stability box (a
     new module; F is not bounded)."""
     return QFAParams(
@@ -173,6 +183,11 @@ def smooth_params(params: QFAParams) -> QFAParams:
             c0=params.c0.detach(),
             beta=params.beta.detach(),
         )
+
+
+def num_params(npix: int, nb: int, nh: int) -> int:
+    """Total trainable parameter count: F, Psi, omega and three scalars."""
+    return npix * nh + npix + nb + 3
 
 
 def save_npz(path: str, params: QFAParams, mu) -> None:

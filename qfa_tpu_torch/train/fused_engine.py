@@ -40,6 +40,7 @@ import torch
 from ..data.loader import ResidualDataset
 from ..models.params import QFAParams, smooth_params
 from ..ops.epoch_kernel import fused_train_epoch, fused_train_epoch_plain
+from ..utils.profiling import raise_if_nonfinite
 from . import adam
 from .loop import (
     TrainConfig,
@@ -271,6 +272,10 @@ def fit_fused(
         t0 = time.perf_counter()
         prev_state = state  # rollback anchor
         state, losses = run_chunk(state, epoch, chunk)
+        raise_if_nonfinite(
+            f"fit_fused epoch{'s' if chunk > 1 else ''} {epoch}"
+            + (f"-{epoch + chunk - 1}" if chunk > 1 else ""), losses,
+            params=state.params, opt_state=state.opt_state)
         dt = time.perf_counter() - t0
         history.extend(losses)
         rejected = config.reject_nonfinite and not all(

@@ -20,6 +20,7 @@ The production trainer on the whole-epoch kernel is
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from dataclasses import dataclass
@@ -44,7 +45,8 @@ from ..models.params import (
     smooth_params,
 )
 from ..models.qfa import ModelOptions, loss_and_grads, normalize_with_counts
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_device
+from ..utils.profiling import nan_debugging, nonfinite_leaf, raise_if_nonfinite
 from . import adam
 
 Tensor = torch.Tensor
@@ -302,6 +304,33 @@ def _report(logger, metrics_cb, epoch: int, n_epochs: int, loss: float,
         metrics_cb(epoch, loss, dt)
 
 
+@contextlib.contextmanager
+def _nan_watch(where: str, state: TrainState):
+    """With NaN debugging on (``utils.profiling.enable_nan_debugging``),
+    run the block under ``torch.autograd``'s anomaly mode and raise its
+    error as ``FloatingPointError``, naming the first non-finite leaf of
+    ``state`` (the state the block started from); nothing when off."""
+    if not nan_debugging():
+        yield
+        return
+    try:
+        with torch.autograd.set_detect_anomaly(True):
+            yield
+    except RuntimeError as e:
+        if "nan" not in str(e).lower():
+            raise
+        bad = nonfinite_leaf(params=state.params, opt_state=state.opt_state)
+        raise FloatingPointError(
+            f"invalid value (nan or inf) encountered in {where}"
+            + (f": first non-finite leaf {bad}" if bad else "")
+            + f" (anomaly mode: {e})") from e
+
+
+def _check_epoch(where: str, loss, state: TrainState) -> None:
+    raise_if_nonfinite(where, loss, params=state.params,
+                       opt_state=state.opt_state)
+
+
 # ---- the host-streaming trainer ------------------------------------------
 
 
@@ -363,13 +392,16 @@ def fit_streaming(
         rng = np.random.default_rng(seed + epoch)
         t0 = time.perf_counter()
         losses = []
-        for batch in stream_batches(host_data, config.batch_size, rng,
-                                    prefetch=prefetch, device=dev):
-            state, loss = step_fn(state, batch)
-            losses.append(loss)
+        where = f"fit_streaming epoch {epoch}"
+        with _nan_watch(where, state):
+            for batch in stream_batches(host_data, config.batch_size, rng,
+                                        prefetch=prefetch, device=dev):
+                state, loss = step_fn(state, batch)
+                losses.append(loss)
         # reference epoch-loss bookkeeping: sum of batch means / floor(N/B);
         # the epoch's one host sync
         epoch_loss = float(torch.stack(losses).sum()) / niter
+        _check_epoch(where, epoch_loss, state)
         dt = time.perf_counter() - t0
         history.append(epoch_loss)
         val_loss = None if val_fn is None else val_fn(state.params)
@@ -392,14 +424,6 @@ def fit_streaming(
 # ---- the resident plain autograd trainer ---------------------------------
 
 
-def _on(x, dtype: torch.dtype, device: torch.device) -> Tensor:
-    """An index or weight matrix (tensor or array) as a tensor on
-    ``device``: one copy per epoch."""
-    if not isinstance(x, Tensor):
-        x = torch.tensor(np.asarray(x))
-    return x.to(device=device, dtype=dtype)
-
-
 def make_epoch_fn(config: TrainConfig) -> Callable:
     """One-epoch function ``(state, data, idx, wt=None) -> (state,
     epoch_loss)`` of :func:`make_step_fn` updates over a resident
@@ -412,9 +436,9 @@ def make_epoch_fn(config: TrainConfig) -> Callable:
 
     def epoch_fn(state: TrainState, data: ResidualDataset, idx, wt=None):
         dev = data.delta.device
-        idx = _on(idx, torch.long, dev)
+        idx = to_device(idx, dev, torch.long)
         if wt is not None:
-            wt = _on(wt, torch.float32, dev)
+            wt = to_device(wt, dev)
         losses = []
         for i in range(idx.shape[0]):
             batch = data.gather(idx[i], None if wt is None else wt[i])
@@ -566,7 +590,10 @@ def fit(
     history: list = []
     for epoch in range(start_epoch, config.n_epochs):
         t0 = time.perf_counter()
-        state, loss = run_epoch(state, epoch)
+        where = f"fit epoch {epoch}"
+        with _nan_watch(where, state):
+            state, loss = run_epoch(state, epoch)
+        _check_epoch(where, loss, state)
         dt = time.perf_counter() - t0
         history.append(loss)
         val_loss = None if val_fn is None else val_fn(state.params)

@@ -2,9 +2,10 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "to_device"]
 
 
 def resolve_device(spec) -> torch.device:
@@ -26,3 +27,11 @@ def resolve_device(spec) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(dev)!r} (cpu or cuda)")
     return dev
+
+
+def to_device(x, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """An array or tensor as a detached tensor of ``dtype`` on ``device``
+    (an array is copied; a tensor already there is returned as it is)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.tensor(np.asarray(x))
+    return x.detach().to(device=device, dtype=dtype)

@@ -213,7 +213,8 @@ def test_cli_train_device_cuda_raises_without_gpu(no_gpu, tmp_path):
 def test_modes_not_ported_raise_naming_roadmap(tmp_path):
     """The sharded streaming trainer and the 2-D data x pixel mesh raise
     naming A10; the window mode of the epoch kernel is ported, and its own
-    argument checks raise ValueError; the profiler options name A8."""
+    argument checks raise ValueError; the profiler option is ported: the
+    CLI's training run with it runs and writes its trace."""
     params = random_init(30, 10, 2, generator=torch.Generator().manual_seed(0))
     st = adam.init(params)
     x = torch.full((8, 30), 0.1)
@@ -235,10 +236,11 @@ def test_modes_not_ported_raise_naming_roadmap(tmp_path):
         epoch_kernel.fused_train_epoch(*args, epoch=0, n_batches=1,
                                        tile_batch=4, sync_grads=True,
                                        pending=pend)
-    with pytest.raises(NotImplementedError, match="A8"):
-        port_main(["--type", "train", "--device", "cpu", "--output_dir",
-                   str(tmp_path / "o"), "--opts", "RUNTIME.PROFILE_DIR",
-                   str(tmp_path / "prof")])
+    catalog, data_dir = write_training_set(tmp_path)
+    run = cli_train(catalog, data_dir, tmp_path / "o", 1,
+                    "RUNTIME.PROFILE_DIR", str(tmp_path / "prof"))
+    assert run["engine"] == "fit" and len(run["history"]) == 1
+    assert len(os.listdir(tmp_path / "prof")) == 1
     assert epoch_kernel.LAUNCHES == 0
 
 

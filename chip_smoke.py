@@ -108,7 +108,16 @@ made from a seed:
     loss rows and exported pending buffer; a repeat window call bitwise;
     one DESI window of 512 spectra; then, in a one-rank NCCL group,
     ``sync_dp`` at K 1 and 16 bitwise equal to the plain kernel epoch on
-    the same permutation;
+    the same permutation; and its CUDA graph (each epoch's windows,
+    all-reduces and flush captured once, replayed every epoch) against
+    its eager window loop, bitwise, at K 1 and at K 16 with a remainder
+    window: three chained epochs, the third across ``decay_step``, then a
+    reshuffled dataset, which captures anew; the state an epoch returned
+    unchanged by the later replays; per replay the profiler's counts (3
+    epoch.cu launches per batch, one apply per window after the first,
+    the flush, the NCCL events) and no window call or all_reduce issued
+    by the host; the captured graph's programmatic (early-launch) edges
+    counted;
 16. ``torch.distributed`` through the library entry points the CLI uses
     (``fit_fused(mesh=)`` local SGD and exact DP at K 1, 2 and 16,
     ``fit(mesh=)`` with both per-step engines, ``predict_dataset_fused(
@@ -120,7 +129,8 @@ made from a seed:
     tensors is printed;
 17. times at world size 1 over NCCL, one epoch of 65,536 SDSS spectra at
     batch 500, bf16 operands: the plain ``fit_fused`` epoch, ``sync_dp``
-    at K 1 and 16, ``epoch_dp``: ms per epoch, the host's time per call,
+    at K 1 and 16 on its CUDA graph and on its eager window loop,
+    ``epoch_dp``: ms per epoch, the host's time per epoch and per call,
     the all-reduce's time, the device busy share and the launches per
     epoch;
 18. the survey-scale OOD sweep: 1,474,560 SDSS spectra made on the card
@@ -1594,11 +1604,12 @@ def phase_streaming(root, problem, device):
                 n_batches=n_batches)
 
 
-def profile_run(run):
+def profile_run(run, host_ops=False):
     """Run ``run()`` under torch.profiler. Returns (wall s, device time
     by kernel or copy name in s, H2D copy s, device busy share of the
     wall, device events by name); the last four are None when the
-    profiler sees no device activity."""
+    profiler sees no device activity. With ``host_ops``, also the host's
+    events (operators, runtime calls) by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1623,8 +1634,13 @@ def profile_run(run):
     dev = [e for e in prof.events()
            if getattr(e, "device_type", None) == DeviceType.CUDA
            and not e.name.startswith("ProfilerStep")]
+    host = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) == DeviceType.CPU:
+            host[e.name] = host.get(e.name, 0) + 1
+    extra = (host,) if host_ops else ()
     if not dev:
-        return wall, None, None, None, None
+        return (wall, None, None, None, None, *extra)
     by_name, counts = {}, {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
@@ -1640,7 +1656,7 @@ def profile_run(run):
         else:
             cur_e = max(cur_e, e_)
     busy += cur_e - cur_s
-    return wall, by_name, h2d, busy * 1e-6 / wall, counts
+    return (wall, by_name, h2d, busy * 1e-6 / wall, counts, *extra)
 
 
 def phase_step_times(device, problem, reps=20):
@@ -2193,6 +2209,191 @@ def phase_window_vs_plain(device, mesh):
     return worst
 
 
+#: phase 15's graph checks: chained epochs from this Adam counter, so
+#: that the third crosses TrainConfig's decay_step of 10 ((e + 1) // 10 is
+#: 0, 1, 1 for epochs 8, 9, 10)
+GRAPH_EPOCH0 = 8
+
+
+def graph_edges(graph):
+    """(edges, programmatic edges) of a captured ``torch.cuda.CUDAGraph``
+    (kept: ``keep_graph=True``), read with libcuda's
+    ``cuGraphGetEdges_v2``; a programmatic edge is a kernel launched early
+    (programmatic dependent launch) after the one before it."""
+    import ctypes
+
+    fn = ctypes.CDLL("libcuda.so.1").cuGraphGetEdges_v2
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_size_t)]
+    handle = graph.raw_cuda_graph()
+    n = ctypes.c_size_t(0)
+    rc = fn(handle, None, None, None, ctypes.byref(n))
+    check(rc == 0, f"cuGraphGetEdges_v2 (count): error {rc}")
+    frm = (ctypes.c_void_p * n.value)()
+    to = (ctypes.c_void_p * n.value)()
+    # CUgraphEdgeData: from_port, to_port, type, 5 reserved bytes
+    data = (ctypes.c_uint8 * (8 * n.value))()
+    rc = fn(handle, frm, to, data, ctypes.byref(n))
+    check(rc == 0, f"cuGraphGetEdges_v2: error {rc}")
+    # CU_GRAPH_DEPENDENCY_TYPE_PROGRAMMATIC is 1
+    return n.value, sum(data[8 * i + 2] == 1 for i in range(n.value))
+
+
+class CountingLib:
+    """The CUDA library with a count of its epoch-kernel C calls."""
+
+    def __init__(self, lib):
+        self.lib, self.calls = lib, 0
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if name != "qfa_train_epoch":
+            return fn
+
+        def counted(*args):
+            self.calls += 1
+            return fn(*args)
+
+        return counted
+
+
+def state_leaves(st):
+    return [getattr(t, k).detach() for t in (st.params, st.opt_state.m,
+                                             st.opt_state.v)
+            for k in PARAM_NAMES]
+
+
+def phase_window_graph(device, mesh):
+    """sync_dp's CUDA graph (NCCL, world size 1) against its eager window
+    loop on the same calls, bitwise, at K 1 and at K 16 (a remainder
+    window): three chained epochs from GRAPH_EPOCH0 (eager, captured and
+    replayed, replayed), then a reshuffled dataset (eager, captured
+    anew); the state each epoch returned unchanged by the later ones; one
+    replay profiled: epoch.cu's launches, the NCCL events, no window call
+    or all_reduce on the host; the graph's programmatic edges. Returns
+    the lines to print."""
+    from qfa_tpu_torch.data.loader import ResidualDataset
+    from qfa_tpu_torch.ops import epoch_kernel
+    from qfa_tpu_torch.parallel import make_sync_dp_epoch_fn
+    from qfa_tpu_torch.train import TrainConfig, TrainState, adam, pick_tiling
+
+    n, batch = 8192, 500
+    tb = pick_tiling(batch)[0]
+    n_batches = -(-n // batch)
+    grid, params, st, data = window_problem(SDSS, n, device, SEED + 54)
+    data = pad_rows(data, n_batches * batch - n)
+    zq, _, kw = layout(grid, data, "derived")
+    shard = ResidualDataset(delta=data["delta"], error=data["error"],
+                            zabs=zq, mask=None)
+    # the reshuffle: the dataset's rows in new tensors, as fit_fused's
+    rows = torch.randperm(shard.size, generator=torch.Generator()
+                          .manual_seed(SEED + 9)).to(device)
+    shuffled = ResidualDataset(delta=shard.delta[rows],
+                               error=shard.error[rows], zabs=zq[rows],
+                               mask=None)
+    g = torch.Generator().manual_seed(SEED + 8)
+    perms = [torch.randperm(n_batches * batch // tb, generator=g)
+             for _ in range(5)]
+    cfg = TrainConfig(batch_size=batch, mxu_bf16=True)
+    start = TrainState(params, adam.AdamState(m=st.m, v=st.v,
+                                              epoch=GRAPH_EPOCH0))
+    lines = []
+    for K in (1, 16):
+        n_windows = -(-n_batches // K)
+        kwargs = dict(batches_per_launch=K, tile_batch=tb, batch_rows=batch,
+                      loglam=kw["loglam"], n_real=n)
+        fg = make_sync_dp_epoch_fn(cfg, mesh, **kwargs)
+        fe = make_sync_dp_epoch_fn(cfg, mesh, engine="eager", **kwargs)
+        sg = se = start
+        graphs, anchors = [], []
+        for e, perm in enumerate(perms):
+            d = shard if e < 3 else shuffled
+            sg, lg = fg(sg, d, perm)
+            se, le = fe(se, d, perm)
+            torch.cuda.synchronize()
+            check(fg.engine == "graph" and fe.engine == "eager",
+                  f"K={K}: engines {fg.engine}, {fe.engine}")
+            check(all(torch.equal(a, b) for a, b in
+                      zip(state_leaves(sg), state_leaves(se)))
+                  and torch.equal(lg, le),
+                  f"sync_dp K={K}, epoch {e}: the graph differs from the "
+                  "eager loop")
+            graphs.append(fg.windows.run.graph)
+            for was, copy in anchors:
+                check(all(torch.equal(a, b) for a, b in
+                          zip(state_leaves(was), copy)),
+                      f"K={K}: epoch {e} wrote into a state returned before")
+            anchors.append((sg, [x.clone() for x in state_leaves(sg)]))
+        check(graphs[0] is None and graphs[1] is not None
+              and graphs[2] is graphs[1] and graphs[3] is None
+              and graphs[4] is not None and graphs[4] is not graphs[1],
+              f"K={K}: captures {graphs}: want none, one kept, none after "
+              "the reshuffle, a new one")
+        edges, prog = graph_edges(graphs[4])
+        early = 3 * n_batches - 1 if epoch_kernel.EARLY_LAUNCH else 0
+        check(prog == early, f"K={K}: the graph holds {prog} programmatic "
+              f"edges, the launches asked for {early}")
+        # one replay and one eager epoch, profiled
+        seen = {}
+        for label, fn in (("graph", fg), ("eager", fe)):
+            k = fn.windows.run._k
+            lib, k.lib = k.lib, CountingLib(k.lib)
+            c0 = epoch_kernel.LAUNCHES, epoch_kernel.WINDOW_LAUNCHES
+            try:
+                _, by_name, _, busy, counts, host = profile_run(
+                    lambda fn=fn: fn(sg, shuffled, perms[4]), host_ops=True)
+            finally:
+                c_calls, k.lib = k.lib.calls, lib
+            if by_name is None:
+                seen[label] = None
+                continue
+            stage = {x: sum(c for name, c in counts.items() if x in name)
+                     for x in EPOCH_STAGES}
+            seen[label] = dict(
+                stages=stage, busy=busy, c_calls=c_calls,
+                nccl=sum(c for name, c in counts.items()
+                         if "nccl" in name.lower()),
+                host_allreduce=sum(c for name, c in host.items()
+                                   if "allreduce" in name.lower()
+                                   or "all_reduce" in name.lower()),
+                graph_launches=host.get("cudaGraphLaunch", 0),
+                counted=(epoch_kernel.LAUNCHES - c0[0],
+                         epoch_kernel.WINDOW_LAUNCHES - c0[1]))
+        want = {"forward_kernel": n_batches, "backward_kernel": n_batches,
+                "update_kernel": n_batches + n_windows}
+        for label, r in seen.items():
+            check(r is not None, f"K={K}: the profiler saw no device "
+                  f"activity in the {label} epoch")
+            check(r["stages"] == want, f"K={K}, {label}: epoch.cu launched "
+                  f"{r['stages']}, want {want}")
+            check(r["counted"] == (n_windows + 1, n_windows + 1),
+                  f"K={K}, {label}: counted {r['counted']}")
+        gr, ea = seen["graph"], seen["eager"]
+        check(gr["c_calls"] == 0 and gr["host_allreduce"] == 0,
+              f"K={K}: a replay made {gr['c_calls']} window calls and "
+              f"{gr['host_allreduce']} all_reduce ops on the host")
+        check(ea["c_calls"] == n_windows + 1
+              and ea["host_allreduce"] >= n_windows,
+              f"K={K}: the eager epoch made {ea['c_calls']} window calls "
+              f"and {ea['host_allreduce']} all_reduce ops on the host")
+        check(gr["nccl"] == ea["nccl"], f"K={K}: NCCL device events: "
+              f"graph {gr['nccl']}, eager {ea['nccl']}")
+        lines.append(
+            f"K={K} ({n_windows} windows of {n_batches} batches): 5 epochs "
+            f"from Adam counter {GRAPH_EPOCH0} (eager, captured and "
+            "replayed, replayed, then a reshuffled dataset: eager, captured"
+            " anew) bitwise equal to the eager loop, each returned state "
+            "unchanged by the later epochs; the graph holds "
+            f"{edges} edges, {prog} of them programmatic (early launch); "
+            f"one replay: {gr['stages']} epoch.cu launches, "
+            f"{gr['nccl']} NCCL device events, {gr['c_calls']} window calls"
+            f" and {gr['host_allreduce']} all_reduce ops on the host, "
+            f"{gr['graph_launches']} cudaGraphLaunch, busy share "
+            f"{gr['busy']!r}; the eager epoch: {ea['c_calls']} window "
+            f"calls, {ea['host_allreduce']} host all_reduce events, busy "
+            f"share {ea['busy']!r}")
+    return lines
+
+
 def free_port():
     import socket
 
@@ -2561,8 +2762,9 @@ def phase_dist_ranks(device):
 def phase_dp_times(device, mesh, n=65536, batch=500, reps=3):
     """One epoch of n SDSS spectra at batch 500, bf16 operands, derived
     layout, at world size 1 over NCCL: the plain fit_fused epoch (one
-    epoch-kernel call), sync_dp at K 1 and 16, epoch_dp; and the window
-    mode's plain version at K 1 (once). Per engine: ms per epoch (CUDA
+    epoch-kernel call), sync_dp at K 1 and 16 on its CUDA graph (one
+    replay per epoch) and on its eager window loop, epoch_dp; and the
+    window mode's plain version at K 1 (once). Per engine: ms per epoch (CUDA
     events, median of reps), the host's time to issue the epoch and per
     call (host clock, no sync inside), the all_reduce's device time (the
     profiler's NCCL events) and, alone on the epoch's vector size, by
@@ -2601,6 +2803,12 @@ def phase_dp_times(device, mesh, n=65536, batch=500, reps=3):
             cfg, mesh, batches_per_launch=1, **dp_kw): f(state, shard, perm),
         "sync_dp K=16": lambda f=make_sync_dp_epoch_fn(
             cfg, mesh, batches_per_launch=16, **dp_kw): f(state, shard, perm),
+        "sync_dp K=1 eager": lambda f=make_sync_dp_epoch_fn(
+            cfg, mesh, batches_per_launch=1, engine="eager", **dp_kw):
+            f(state, shard, perm),
+        "sync_dp K=16 eager": lambda f=make_sync_dp_epoch_fn(
+            cfg, mesh, batches_per_launch=16, engine="eager", **dp_kw):
+            f(state, shard, perm),
         "epoch_dp": lambda f=make_epoch_dp_fn(cfg, mesh, **dp_kw):
             f(state, shard, perm[None]),
     }
@@ -2609,9 +2817,12 @@ def phase_dp_times(device, mesh, n=65536, batch=500, reps=3):
                   "sync_dp K=16": pending_len(grid.npix, NH) + 32,
                   "epoch_dp": 3 * (grid.npix * NH + grid.npix + grid.nb + 3)
                   + 2 * n_batches}
+    for k in (1, 16):
+        vec_floats[f"sync_dp K={k} eager"] = vec_floats[f"sync_dp K={k}"]
     out = {}
     for label, fn in fns.items():
-        fn()
+        for _ in range(2):  # sync_dp's graph: an eager epoch, a capture
+            fn()
         torch.cuda.synchronize()
         ms = time_cuda(fn, reps)
         c0 = epoch_kernel.LAUNCHES
@@ -3976,6 +4187,13 @@ def main(argv=None):
     if want(15):
         say("phase 15 epoch kernel window mode vs plain version on the card:")
         window_worst = phase_window_vs_plain(device, mesh)
+        t0 = time.perf_counter()
+        lines = phase_window_graph(device, mesh)
+        say(f"  sync_dp's CUDA graph against its eager loop, world size 1 "
+            f"over NCCL, SDSS, 8192 spectra, batch 500 "
+            f"({time.perf_counter() - t0:.1f} s):")
+        for line in lines:
+            say(f"    {line}")
 
     if want(16):
         t0 = time.perf_counter()

@@ -10,23 +10,29 @@ card) as ``torchrun`` would (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 over NCCL (``--device cpu``: the plain versions over gloo, for a
 rehearsal). On the seeded SDSS problem of ``chip_smoke.py`` (n spectra,
 the given global batch, bf16 operands, derived layout) every rank times
-one epoch of ``sync_dp`` at K 1 and 16 and of ``epoch_dp`` on its rows
-(host clock around the epoch and a synchronize, median of reps after a
-warm-up), and rank 0 times the single-card ``fit_fused`` epoch of the
+one epoch of ``sync_dp`` at K 1 and 16 (on NCCL its CUDA graph, one replay
+per epoch; K 1 also on its eager window loop) and of ``epoch_dp`` on its
+rows (host clock around the epoch and a synchronize, median of reps after
+two warm-ups: an eager epoch and the graph's capture), and rank 0 times
+the single-card ``fit_fused`` epoch of the
 whole set beside them. It then holds the exact-DP (K = 1) parameters of
 all ranks equal and against the single-card epoch on the composed tile
 permutation (each global batch the union of the ranks' local batches),
+profiles one more K = 1 epoch on every rank (on NCCL one replay of its
+graph: rank 0's epoch.cu launches and NCCL device events),
 norm-wise to ``chip_smoke.py``'s bf16 limit, and prints one JSON line
 with the card's name and power limit. Imports nothing of JAX.
 """
 
 import argparse
+import gc
 import json
 import os
 import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -40,6 +46,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=500, help="global batch")
     ap.add_argument("--reps", type=int, default=3, help="timed epochs")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--timeout", type=float, default=1500.0,
+                    help="seconds before every rank is stopped (a hung "
+                    "rank first prints its Python stack)")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
@@ -59,19 +68,32 @@ def main(argv=None):
     env = dict(os.environ, WORLD_SIZE=str(ranks), MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(port))
     argv = [a for a in (argv if argv is not None else sys.argv[1:])]
+    logs = [tempfile.TemporaryFile("w+") for _ in range(ranks)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--worker", *argv],
         env=dict(env, RANK=str(r),
                  LOCAL_RANK=str(r if args.device == "cuda" else 0)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(ranks)]
+        stdout=log, stderr=subprocess.STDOUT, text=True)
+        for r, log in enumerate(logs)]
+    # every rank ends, or one fails (the others would wait for it in a
+    # collective) or the time is up: then all are stopped
+    deadline = time.monotonic() + args.timeout
     try:
-        outs = [p.communicate(timeout=1500)[0] for p in procs]
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(
+                    p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
     rc = 0
     for r, (p, out) in enumerate(zip(procs, outs)):
         if p.returncode != 0 or r == 0:
@@ -81,8 +103,12 @@ def main(argv=None):
 
 
 def worker(args):
+    import faulthandler
     from datetime import timedelta
 
+    # a rank still running near the deadline prints its stack and ends
+    faulthandler.dump_traceback_later(max(args.timeout - 30.0, 10.0),
+                                      exit=True)
     import torch.distributed as dist
 
     import chip_smoke as cs
@@ -142,22 +168,39 @@ def worker(args):
             cfg, mesh, batches_per_launch=1, **dp_kw), perm),
         "sync_dp K=16": (make_sync_dp_epoch_fn(
             cfg, mesh, batches_per_launch=16, **dp_kw), perm),
+        "sync_dp K=1 eager": (make_sync_dp_epoch_fn(
+            cfg, mesh, batches_per_launch=1, engine="eager", **dp_kw), perm),
         "epoch_dp": (make_epoch_dp_fn(cfg, mesh, **dp_kw), perm[None]),
     }
     times, out = {}, {}
     for label, (fn, p) in engines.items():
         samples = []
-        for rep in range(args.reps + 1):  # the first is the warm-up
+        for rep in range(args.reps + 2):  # the first two warm up
             dist.barrier()
             sync()
             t0 = time.perf_counter()
             new, loss = fn(state, shard, p)
             float(loss)
             sync()
-            if rep:
+            if rep > 1:
                 samples.append((time.perf_counter() - t0) * 1e3)
-        times[label] = {"ms": statistics.median(samples), "samples": samples}
+        times[label] = {"ms": statistics.median(samples), "samples": samples,
+                        "engine": getattr(fn, "engine", None)}
+        print(f"rank {rank}: {label} timed", file=sys.stderr, flush=True)
         out[label] = new
+    # one more exact-DP epoch under torch.profiler on every rank
+    prof = None
+    if cuda:
+        fn, p = engines["sync_dp K=1"]
+        dist.barrier()
+        _, _, _, busy, counts = cs.profile_run(lambda: fn(state, shard, p))
+        if counts is not None:
+            prof = {"engine": fn.engine, "busy": busy,
+                    "nccl_events": sum(c for k, c in counts.items()
+                                       if "nccl" in k.lower()),
+                    "epoch_launches": {x: sum(c for k, c in counts.items()
+                                              if x in k)
+                                       for x in cs.EPOCH_STAGES}}
     # the single-card epoch of the whole set, on rank 0
     if rank == 0:
         # fit_fused's tile on one card, unless the ranks padded the batch
@@ -209,12 +252,18 @@ def worker(args):
             "card": smi, "ranks": ndev, "backend": dist.get_backend(),
             "n": args.n, "batch": args.batch, "local_tile": tb,
             "batches": n_batches, "times": times,
+            "sync_dp_k1_profile": prof,
             "exact_dp_ranks_equal": equal,
             "exact_dp_params_rel_to_one_card_composition": rel,
             "limit": limit,
         }
         print(json.dumps(record), flush=True)
     dist.barrier()
+    # sync_dp's graphs hold NCCL's captured collectives: they go first
+    # (destroying the process group waits for them otherwise)
+    engines.clear()
+    fn = None
+    gc.collect()
     dist.destroy_process_group()
     if record is not None and not (record["exact_dp_ranks_equal"]
                                    and record["exact_dp_params_rel_to_one_card_composition"]

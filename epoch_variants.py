@@ -88,8 +88,9 @@ VARIANTS = {
         "for (int t = 0; t < NT; ++t) acc[t] += s_sm[r][t] * wo;",
         "for (int t = 0; t < 0; ++t) acc[t] += s_sm[r][t] * wo;")]),
     "u_prologue": ("all of the update", [(
-        "  pdl_wait();  // every input comes from this batch's forward and "
-        "backward\n", "  pdl_wait();\n  if (a.npix > 0) return;\n")]),
+        "  pdl_wait();\n  const bool apply = mode == UPD_APPLY;\n",
+        "  pdl_wait();\n  if (a.npix > 0) return;\n"
+        "  const bool apply = mode == UPD_APPLY;\n")]),
     "stamps": ("nothing; timestamps at the phase boundaries", [
         _STAMP,
         ("  pdl_launch_dependents();\n  if (tid < nr) row_sm[tid]",

@@ -357,9 +357,16 @@ def _train(cfg: ConfigNode, device) -> dict:
         if mesh is None:
             mode = ""
         elif cfg.TRAIN.DP_EXACT:
+            from .parallel.sync_dp import window_engine
+
+            how = {"graph": "each epoch's windows, all-reduces and flush "
+                   "replayed as one CUDA graph",
+                   "eager": "the windows issued one by one from Python"}[
+                window_engine(mesh.backend, device.type, False)]
             mode = (f" (exact DP at launch cadence over {mesh.size} "
-                    f"devices, {cfg.TRAIN.BATCHES_PER_LAUNCH} batch(es) per "
-                    "launch; parallel/sync_dp.py)")
+                    f"devices over {mesh.backend}, "
+                    f"{cfg.TRAIN.BATCHES_PER_LAUNCH} batch(es) per launch, "
+                    f"{how}; parallel/sync_dp.py)")
         else:
             mode = (f" (multi-device local SGD over {mesh.size} devices; "
                     "set TRAIN.DP_EXACT for trajectory-exact DP at launch "

@@ -92,7 +92,10 @@
 // update over (row, pixel) threads, and launches three kernels per batch.
 // It still takes ~20x the bound: each kernel is latency-bound at 16 warps
 // per SM, and each launch leaves the card idle for ~4 us (PERF.md).
-// Tensor cores and CUDA graphs are later work.
+// Tensor cores are later work. On NCCL the window mode's launches of a
+// whole epoch are captured once into a CUDA graph and replayed
+// (parallel/sync_dp.py): they read their schedule from device memory
+// (Sched), so one graph serves every epoch.
 //
 // Build without -use_fast_math: __expf/__logf in the tau chain and in
 // log(d) miss the tolerances.
@@ -241,6 +244,27 @@ __device__ __forceinline__ float adam(const EpochArgs& a, float prm,
   mo = (1.0f - a.b1) * gg + a.b1 * mo;
   ve = (1.0f - a.b2) * gg * gg + a.b2 * ve;
   return prm - lr * (mo / bc1) / (sqrtf(ve / bc2) + a.eps);
+}
+
+// The learning rate and bias corrections of one step: the launch's own
+// values or, when `row` is set, the (lr, bc1, bc2) row it points at in
+// device memory, read when the kernel runs. The window mode reads them
+// so: a CUDA graph replays its launches with the arguments they were
+// captured with, and the wrapper rewrites the row before each replay, so
+// one graph serves every epoch. The same floats either way, so the same
+// bits.
+struct Sched {
+  float lr, bc1, bc2;
+  const float* row;
+};
+
+__device__ __forceinline__ Sched resolved(Sched s) {
+  if (s.row != nullptr) {
+    s.lr = __ldg(s.row);
+    s.bc1 = __ldg(s.row + 1);
+    s.bc2 = __ldg(s.row + 2);
+  }
+  return s;
 }
 
 // The Adam step and clip of tau0, c0 and beta at the end of a batch, from
@@ -465,12 +489,11 @@ __device__ __forceinline__ void fwd_prefetch(
 
 // ---- 1: forward products, then the per-row finish of each row tile -----
 // Step g of the call (its batches, after the applied pending if there is
-// one), its rows from tile `base` of the permutation; lr, bc1 and bc2 are
-// the schedule of step g - 1.
+// one), its rows from tile `base` of the permutation; `sc` is the
+// schedule of step g - 1.
 template <int NH>
 __global__ void __launch_bounds__(kFwdThreads, 4)  // 528 blocks in one wave
-    forward_kernel(EpochArgs a, int base, int g, float lr, float bc1,
-                   float bc2) {
+    forward_kernel(EpochArgs a, int base, int g, Sched sc) {
   using D = Dims<NH>;
   constexpr int NT = D::NT, NV = D::NV, CPL = D::CPL, HS = D::HS;
   // [array][pixel][row]; after the products: the warps' sums, then the
@@ -541,7 +564,8 @@ __global__ void __launch_bounds__(kFwdThreads, 4)  // 528 blocks in one wave
     float s[9];
     float* cur = a.scal + 9 * (g & 1);
     if (g > 0) {
-      scalar_step(a, a.scal + 9 * ((g - 1) & 1), lr, bc1, bc2, s);
+      const Sched p = resolved(sc);
+      scalar_step(a, a.scal + 9 * ((g - 1) & 1), p.lr, p.bc1, p.bc2, s);
       if (blockIdx.x == 0 && blockIdx.y == 0 && lane == 0) {
 #pragma unroll
         for (int k = 0; k < 9; ++k) cur[k] = s[k];
@@ -944,8 +968,8 @@ __global__ void __launch_bounds__(kBwdThreads, 4)
 // block runs the scalars' step.
 template <int NH>
 __global__ void __launch_bounds__(kUpdThreads)
-    update_kernel(EpochArgs a, int out_idx, int g, float lr, float bc1,
-                  float bc2, int last_step, int mode) {
+    update_kernel(EpochArgs a, int out_idx, int g, Sched sc, int last_step,
+                  int mode) {
   using D = Dims<NH>;
   constexpr int NT = D::NT, NR = D::NR;
   constexpr int X = NT + NH;
@@ -961,6 +985,9 @@ __global__ void __launch_bounds__(kUpdThreads)
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * kUpdPix;
   pdl_launch_dependents();
+  // no kernel writes the schedule row: read before the wait
+  const Sched sch = resolved(sc);
+  const float lr = sch.lr, bc1 = sch.bc1, bc2 = sch.bc2;
   // every input comes from this batch's forward and backward, or, when
   // applying, from the caller's sum of the pending buffer (this kernel is
   // then the call's first and is not launched early)
@@ -1154,11 +1181,18 @@ EpochArgs point_at_pending(EpochArgs a, float* pending) {
 // three per batch, the last batch's update exporting into pend_out (when
 // given). With `early`, each but the call's first is launched early. The
 // first follows the caller's copies, collectives and kernels in plain
-// stream order.
+// stream order. Epoch e's schedule is row e of `sched` (host) passed as
+// values, or of `sched_dev` (device) passed as its address.
 template <int NH>
-cudaError_t run(const EpochArgs& args, const float* sched, int n_tiles,
-                int tiles_per_batch, int n_batches, int n_epochs, bool early,
-                cudaStream_t s) {
+cudaError_t run(const EpochArgs& args, const float* sched,
+                const float* sched_dev, int n_tiles, int tiles_per_batch,
+                int n_batches, int n_epochs, bool early, cudaStream_t s) {
+  auto row = [&](int e) {
+    return sched_dev != nullptr
+               ? Sched{0.0f, 0.0f, 0.0f, sched_dev + 3 * e}
+               : Sched{sched[3 * e], sched[3 * e + 1], sched[3 * e + 2],
+                       nullptr};
+  };
   const dim3 fwd_grid((args.npix + kFwdPix - 1) / kFwdPix, args.n_rtiles);
   const dim3 bwd_grid(
       (args.npix + kBwdPix * kBwdTiles - 1) / (kBwdPix * kBwdTiles),
@@ -1171,33 +1205,34 @@ cudaError_t run(const EpochArgs& args, const float* sched, int n_tiles,
       args.pend_out ? point_at_pending(args, args.pend_out) : args;
   if (apply) {
     cudaError_t err = launch(update_kernel<NH>, upd_grid, kUpdThreads, s,
-                             false, in, 0, 0, sched[0], sched[1], sched[2],
-                             n_steps == 1 ? 1 : 0, int(UPD_APPLY));
+                             false, in, 0, 0, row(0), n_steps == 1 ? 1 : 0,
+                             int(UPD_APPLY));
     if (err == cudaSuccess) err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   for (int e = 0; e < n_epochs; ++e) {
-    const float* sc = sched + 3 * e;
+    const Sched sc = row(e);
     for (int i = 0; i < n_batches; ++i) {
       const int base = e * n_tiles + i * tiles_per_batch;
       const int b = e * n_batches + i;  // the batch, its loss row
       const int g = apply + b;          // the step
-      // step g - 1's schedule: the applied pending's is epoch 0's
-      const float* prev = sched + 3 * (i > 0 || apply ? e : e - 1);
+      // step g - 1's schedule: the applied pending's is epoch 0's; the
+      // call's first step has none
       const bool first = g == 0, last = g + 1 == n_steps;
+      const Sched prev = first ? Sched{0.0f, 0.0f, 0.0f, nullptr}
+                               : row(i > 0 || apply ? e : e - 1);
       const bool exporting = args.pend_out != nullptr && last;
       // the first batch after an applied pending takes the scalars' step
       // from the pending's block sums and books
       cudaError_t err = launch(
           forward_kernel<NH>, fwd_grid, kFwdThreads, s, early && !first,
-          apply && b == 0 ? in : args, base, g, first ? 0.0f : prev[0],
-          first ? 0.0f : prev[1], first ? 0.0f : prev[2]);
+          apply && b == 0 ? in : args, base, g, prev);
       if (err == cudaSuccess)
         err = launch(backward_kernel<NH>, bwd_grid, kBwdThreads, s, early,
                      args, base, g);
       if (err == cudaSuccess)
         err = launch(update_kernel<NH>, upd_grid, kUpdThreads, s, early,
-                     exporting ? out : args, b, g, sc[0], sc[1], sc[2],
+                     exporting ? out : args, b, g, sc,
                      last && !exporting ? 1 : 0,
                      int(exporting ? UPD_EXPORT : UPD_STEP));
       if (err == cudaSuccess) err = cudaGetLastError();
@@ -1208,19 +1243,19 @@ cudaError_t run(const EpochArgs& args, const float* sched, int n_tiles,
 }
 
 cudaError_t run_nh(int nh, const EpochArgs& args, const float* sched,
-                   int n_tiles, int tpb, int n_batches, int n_epochs,
-                   bool early, cudaStream_t s) {
+                   const float* sched_dev, int n_tiles, int tpb,
+                   int n_batches, int n_epochs, bool early, cudaStream_t s) {
   switch (nh) {
-    case 1: return run<1>(args, sched, n_tiles, tpb, n_batches, n_epochs, early, s);
-    case 2: return run<2>(args, sched, n_tiles, tpb, n_batches, n_epochs, early, s);
-    case 3: return run<3>(args, sched, n_tiles, tpb, n_batches, n_epochs, early, s);
-    case 4: return run<4>(args, sched, n_tiles, tpb, n_batches, n_epochs, early, s);
-    case 5: return run<5>(args, sched, n_tiles, tpb, n_batches, n_epochs, early, s);
-    case 6: return run<6>(args, sched, n_tiles, tpb, n_batches, n_epochs, early, s);
-    case 7: return run<7>(args, sched, n_tiles, tpb, n_batches, n_epochs, early, s);
-    case 8: return run<8>(args, sched, n_tiles, tpb, n_batches, n_epochs, early, s);
-    case 9: return run<9>(args, sched, n_tiles, tpb, n_batches, n_epochs, early, s);
-    case 10: return run<10>(args, sched, n_tiles, tpb, n_batches, n_epochs, early, s);
+    case 1: return run<1>(args, sched, sched_dev, n_tiles, tpb, n_batches, n_epochs, early, s);
+    case 2: return run<2>(args, sched, sched_dev, n_tiles, tpb, n_batches, n_epochs, early, s);
+    case 3: return run<3>(args, sched, sched_dev, n_tiles, tpb, n_batches, n_epochs, early, s);
+    case 4: return run<4>(args, sched, sched_dev, n_tiles, tpb, n_batches, n_epochs, early, s);
+    case 5: return run<5>(args, sched, sched_dev, n_tiles, tpb, n_batches, n_epochs, early, s);
+    case 6: return run<6>(args, sched, sched_dev, n_tiles, tpb, n_batches, n_epochs, early, s);
+    case 7: return run<7>(args, sched, sched_dev, n_tiles, tpb, n_batches, n_epochs, early, s);
+    case 8: return run<8>(args, sched, sched_dev, n_tiles, tpb, n_batches, n_epochs, early, s);
+    case 9: return run<9>(args, sched, sched_dev, n_tiles, tpb, n_batches, n_epochs, early, s);
+    case 10: return run<10>(args, sched, sched_dev, n_tiles, tpb, n_batches, n_epochs, early, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1266,7 +1301,10 @@ long long qfa_train_epoch_pending_len(int npix, int nh) {
 // its pending buffer there instead of updating.
 // delta and error are float32 (planes_bf16 = 0) or bfloat16 (1). hp
 // (host, HP_* slots) and sched (host, (n_epochs, 3) lr, bc1, bc2) are read
-// here; every other pointer is device memory, spart (scratch) holds at
+// here; with sched_dev (device, the same rows) the kernels read the
+// schedule there when they run, and sched may be null (the window mode's
+// CUDA graph: the caller rewrites the rows before each replay). Every
+// other pointer is device memory, spart (scratch) holds at
 // least 3 * npix + 16 zeros and is 16-byte aligned, and counters
 // (qfa_train_epoch_n_counters ints) must be zero. With early = 0
 // no kernel is launched early, so each starts when the one before it has
@@ -1280,7 +1318,8 @@ int qfa_train_epoch(
     int n_epochs, int npix, int nb, int nh, int derive_mask, int derive_zabs,
     int mxu_bf16, float* F, float* psi, float* omega, float* mF, float* vF,
     float* mpsi, float* vpsi, float* momega, float* vomega, float* scal,
-    const float* hp, const float* sched, float* S, float* alpha,
+    const float* hp, const float* sched, const float* sched_dev, float* S,
+    float* alpha,
     float* rowstat, float* fpart, long long fpart_len, float* partials,
     float* spart, int* counters, int n_counters, float* loss_out,
     float* nreal_out, float* pend_in, float* pend_out, int n_chunks,
@@ -1290,6 +1329,7 @@ int qfa_train_epoch(
   const int batch_rows = tiles_per_batch * tile_batch;
   const bool window = pend_in != nullptr || pend_out != nullptr;
   if (batch_rows <= 0 || n_epochs <= 0 || npix <= 0 ||
+      (sched == nullptr && sched_dev == nullptr) ||
       n_batches < (pend_in != nullptr ? 0 : 1) ||
       (window && n_epochs != 1) || (pend_out != nullptr && n_batches < 1) ||
       n_chunks != (batch_rows + kChunk - 1) / kChunk ||
@@ -1354,8 +1394,9 @@ int qfa_train_epoch(
   args.batch_rows = batch_rows;
   args.n_chunks = n_chunks;
   args.n_rtiles = (batch_rows + kRowTile - 1) / kRowTile;
-  err = run_nh(nh, args, sched, n_tiles, tiles_per_batch, n_batches,
-               n_epochs, early != 0, static_cast<cudaStream_t>(stream));
+  err = run_nh(nh, args, sched, sched_dev, n_tiles, tiles_per_batch,
+               n_batches, n_epochs, early != 0,
+               static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

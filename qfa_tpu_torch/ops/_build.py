@@ -85,7 +85,9 @@ SIGNATURES = {
             _I, _I, _I,  # derive_mask, derive_zabs, mxu_bf16
             _P, _P, _P, _P, _P,  # F, psi, omega, mF, vF (in place)
             _P, _P, _P, _P, _P,  # mpsi, vpsi, momega, vomega, scal
-            _P, _P,  # hp, sched (host float32 arrays)
+            _P, _P,  # hp, sched (host float32 arrays; sched may be null
+            # with sched_dev)
+            _P,  # sched_dev (device schedule rows, or null)
             _P, _P, _P,  # S, alpha, rowstat (scratch)
             _P, _L,  # fpart, its length (scratch)
             _P, _P, _P, _I,  # partials, srows, counters, their count

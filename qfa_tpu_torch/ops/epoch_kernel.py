@@ -42,6 +42,10 @@ with no batch only applies (an epoch's flush). The buffer is one flat
 float32 vector of :func:`pending_len` floats, the port's own layout: what
 the update consumes after its chunk sum, so that one ``all_reduce`` sums
 it. At one rank a window gives the plain epoch's results.
+:class:`WindowCalls` keeps one epoch's calls set up across epochs; its
+launches read the learning rate and bias corrections from a device row
+that :meth:`WindowCalls.set_epoch` rewrites, so one CUDA graph of an
+epoch's windows (``parallel.sync_dp``) serves every epoch.
 
 Not ported: the TPU census switch ``ablate``. ``bwd_wide`` is accepted:
 on the TPU it fused the two backward cotangent products into one
@@ -575,20 +579,31 @@ def _aligned(t: Tensor) -> Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _state_parts(params, m, v) -> list[Tensor]:
+    """The leaves of a state in the order of the kernel's state buffer: F,
+    Psi and omega with their moments, then tau0, c0, beta, their m and
+    their v (flat, detached)."""
+    own = [getattr(t, k).detach().reshape(-1)
+           for k in ("F", "Psi", "omega") for t in (params, m, v)]
+    return own + [getattr(t, k).detach().reshape(1) for t in (params, m, v)
+                  for k in ("tau0", "c0", "beta")]
+
+
 class _Kernel:
     """The CUDA kernel set up on one resident dataset: the library, a copy
     of the state that the kernel updates in place (one buffer: F, Psi and
     omega with their moments, then the scalars tau0, c0, beta, their m and
     their v in a (2, 9) block whose row 0 holds them when a call starts),
     the scratch, the hyper-parameters and the schedule of the epochs from
-    ``epoch``. :meth:`run` makes one C call; the state stays in place from
-    one call to the next."""
+    ``epoch`` (host rows, or the device row ``sched_dev`` when it is set).
+    :meth:`run` makes one C call on the stream current at the call; the
+    state stays in place from one call to the next."""
 
     def __init__(self, params, m, v, delta, error, zabs, mask, loglam, geo,
                  *, epoch, n_epochs, derive_zabs, learning_rate,
                  weight_decay, decay_alpha, decay_step, b1, b2, eps, bounds,
                  law, reference_norm, mxu_bf16, pending=None):
-        from ._build import device_and_stream, load_library
+        from ._build import load_library
 
         dev = self.dev = delta.device
         if geo.nh < 1 or geo.nh > MAX_NH:
@@ -616,16 +631,11 @@ class _Kernel:
         self.n_fpart = int(lib.qfa_train_epoch_fpart_len(npix, rows, nh))
         self.n_counters = int(lib.qfa_train_epoch_n_counters(npix, rows))
         # the state, made by one copy
-        own = [getattr(t, k).detach().reshape(-1)
-               for k in ("F", "Psi", "omega") for t in (params, m, v)]
-        own += [getattr(t, k).detach().reshape(1) for t in (params, m, v)
-                for k in ("tau0", "c0", "beta")]
+        own = _state_parts(params, m, v)
         self.state = torch.cat(own + [torch.zeros((9,), **f32)])
-        parts = torch.split(self.state, [x.numel() for x in own[:9]] + [18])
-        self.F, self.mF, self.vF = (x.view(npix, nh) for x in parts[:3])
-        (self.psi, self.mpsi, self.vpsi, self.omega, self.momega,
-         self.vomega) = parts[3:9]
-        self.scal = parts[9].view(2, 9)
+        self.sizes = [x.numel() for x in own[:9]] + [18]
+        (self.F, self.mF, self.vF, self.psi, self.mpsi, self.vpsi, self.omega,
+         self.momega, self.vomega, self.scal) = self.views(self.state)
         self.row = 0  # the row of the scalars after the last call
         sizes = [rows * ntri, rows * nh, rows * 3, self.n_fpart,
                  self.n_chunks * (ntri + nh + _A_EXTRA) * npix]
@@ -642,7 +652,19 @@ class _Kernel:
         ], np.float32)
         self.sched = np.ascontiguousarray(_schedule_rows(
             epoch, n_epochs, learning_rate, decay_alpha, decay_step, b1, b2))
-        self.index, self.stream = device_and_stream(dev)
+        self.sched_dev: Tensor | None = None
+        # while a CUDA graph captures the calls: (calls, window calls)
+        # captured, counted when the graph is replayed
+        self.captured: list[int] | None = None
+
+    def views(self, buf: Tensor) -> tuple[Tensor, ...]:
+        """F, mF, vF (npix, nh), psi, mpsi, vpsi, omega, momega, vomega
+        and the (2, 9) scalar block: views of a buffer laid out as the
+        state."""
+        npix, nh = self.geo.npix, self.geo.nh
+        parts = torch.split(buf, self.sizes)
+        return (*(x.view(npix, nh) for x in parts[:3]), *parts[3:9],
+                parts[9].view(2, 9))
 
     def scalars_to_row0(self) -> None:
         """Move the scalars to row 0 of their block, where a call starts."""
@@ -655,10 +677,14 @@ class _Kernel:
         """One C call: ``n_epochs`` epochs of ``n_batches`` batches named by
         ``perm`` (int32 on the device); in window mode, first applying
         ``pend_in`` and exporting the last batch into ``pend_out``."""
+        from . import _build
+
         self.scalars_to_row0()
         geo, lib = self.geo, self.lib
         delta, error, zabs, mask, loglam = self.planes
         s_buf, alpha_buf, rowstat, fpart, partials = self.scratch
+        # the stream current now: a CUDA graph captures on its own
+        index, stream = _build.device_and_stream(self.dev)
 
         def ptr(t):
             return None if t is None else t.data_ptr()
@@ -671,33 +697,47 @@ class _Kernel:
             int(self.derive_zabs), int(self.mxu_bf16),
             ptr(self.F), ptr(self.psi), ptr(self.omega), ptr(self.mF),
             ptr(self.vF), ptr(self.mpsi), ptr(self.vpsi), ptr(self.momega),
-            ptr(self.vomega), ptr(self.scal),
-            self.hp.ctypes.data, self.sched.ctypes.data,
+            ptr(self.vomega), ptr(self.scal), self.hp.ctypes.data,
+            self.sched.ctypes.data if self.sched_dev is None else None,
+            ptr(self.sched_dev),
             ptr(s_buf), ptr(alpha_buf), ptr(rowstat), ptr(fpart),
             self.n_fpart, ptr(partials), ptr(self.spart),
             ptr(self.counters), self.n_counters, ptr(losses), ptr(reals),
             ptr(pend_in), ptr(pend_out),
-            self.n_chunks, int(EARLY_LAUNCH), self.index, self.stream,
+            self.n_chunks, int(EARLY_LAUNCH), index, stream,
         )
         if rc != 0:
             raise RuntimeError(
                 f"CUDA epoch kernel launch failed: error {rc} "
                 f"({lib.qfa_cuda_error_string(rc).decode()})")
-        global LAUNCHES, WINDOW_LAUNCHES
-        with _LAUNCH_LOCK:
-            LAUNCHES += 1
-            WINDOW_LAUNCHES += int(pend_in is not None or
-                                   pend_out is not None)
+        window = int(pend_in is not None or pend_out is not None)
+        if self.captured is not None:
+            self.captured[0] += 1
+            self.captured[1] += window
+        else:
+            _count(1, window)
         self.row = (int(pend_in is not None) + n_epochs * n_batches - 1) % 2
 
-    def outputs(self) -> tuple[QFAParams, QFAParams, QFAParams]:
-        """params, m, v: views of the state after the last call."""
-        s = self.scal[self.row]
-        return (QFAParams.wrap(self.F, self.psi, self.omega, s[0], s[1], s[2]),
-                QFAParams.wrap(self.mF, self.mpsi, self.momega, s[3], s[4],
-                               s[5], requires_grad=False),
-                QFAParams.wrap(self.vF, self.vpsi, self.vomega, s[6], s[7],
-                               s[8], requires_grad=False))
+    def outputs(self, buf: Tensor | None = None
+                ) -> tuple[QFAParams, QFAParams, QFAParams]:
+        """params, m, v: views of the state after the last call (or of
+        ``buf``, a copy of it)."""
+        F, mF, vF, psi, mpsi, vpsi, omega, momega, vomega, scal = \
+            self.views(self.state if buf is None else buf)
+        s = scal[self.row]
+        return (QFAParams.wrap(F, psi, omega, s[0], s[1], s[2]),
+                QFAParams.wrap(mF, mpsi, momega, s[3], s[4], s[5],
+                               requires_grad=False),
+                QFAParams.wrap(vF, vpsi, vomega, s[6], s[7], s[8],
+                               requires_grad=False))
+
+
+def _count(calls: int, window_calls: int) -> None:
+    """Add launches of the CUDA kernel to the counts."""
+    global LAUNCHES, WINDOW_LAUNCHES
+    with _LAUNCH_LOCK:
+        LAUNCHES += calls
+        WINDOW_LAUNCHES += window_calls
 
 
 def _launch(params, m, v, delta, error, zabs, mask, loglam, geo, *,
@@ -721,14 +761,46 @@ def _launch(params, m, v, delta, error, zabs, mask, loglam, geo, *,
     return EpochOutputs(**outs)
 
 
+class _Upload:
+    """Copies of a host tensor into the device tensor ``dst`` on the
+    current stream, with no host sync: through a pinned buffer that is
+    rewritten only once its last copy has run. On the CPU a plain copy."""
+
+    def __init__(self, dst: Tensor):
+        self.dst = dst
+        self.cuda = dst.device.type == "cuda"
+        if self.cuda:
+            self.host = torch.empty(dst.shape, dtype=dst.dtype,
+                                    pin_memory=True)
+            self.done = torch.cuda.Event()
+
+    def __call__(self, src) -> None:
+        src = torch.as_tensor(src).reshape(self.dst.shape)
+        if not self.cuda:
+            self.dst.copy_(src)
+            return
+        self.done.synchronize()
+        self.host.copy_(src)
+        self.dst.copy_(self.host, non_blocking=True)
+        self.done.record()
+
+
 class WindowCalls:
-    """The window calls of one exact-DP epoch on the CUDA kernel
-    (``parallel.sync_dp``): the state, scratch and schedule set up once,
-    each window one C call on them, its pending buffer, loss rows and
-    n_real in one new vector that the caller all-reduces as it is. At
-    K = 1 the per-call wrapper of :func:`fused_train_epoch` (checks,
-    copies, output modules) would cost the host ten times the device's
-    work per window.
+    """The window calls of exact-DP epochs on the CUDA kernel
+    (``parallel.sync_dp``): the state, scratch, arrival counters, the
+    epoch's tile permutation (:attr:`perm`) and its schedule row live in
+    buffers set up once, for every epoch the caller runs on these planes;
+    each window is one C call on them that writes its pending buffer, loss
+    rows and n_real into one vector, which the caller all-reduces as it
+    is. At K = 1 the per-call wrapper of :func:`fused_train_epoch`
+    (checks, copies, output modules) would cost the host ten times the
+    device's work per window.
+
+    An epoch: :meth:`set_perm`, :meth:`set_epoch`, :meth:`load` the state,
+    the windows and the flush (or :meth:`replay` of their CUDA graph,
+    :meth:`capture`), then :meth:`snapshot`. The launches read the
+    schedule from the device row that :meth:`set_epoch` writes, so a
+    captured graph serves every epoch.
 
     The arguments are :func:`fused_train_epoch`'s on CUDA tensors (the
     CPU build of ``tools/emulate.py`` runs it on CPU tensors); the
@@ -756,20 +828,59 @@ class WindowCalls:
             law=tau_law_abc(tau_which), reference_norm=reference_norm,
             mxu_bf16=mxu_bf16)
         self.pending_len = pending_len(geo.npix, geo.nh)
+        dev = self._k.dev
+        self._schedule = dict(learning_rate=learning_rate,
+                              decay_alpha=decay_alpha, decay_step=decay_step,
+                              b1=b1, b2=b2)
+        #: the epoch's tile permutation (int32, all of the planes' tiles)
+        self.perm = torch.zeros((geo.n_tiles,), dtype=torch.int32,
+                                device=dev)
+        # (lr, bc1, bc2) of the epoch, read by the launches
+        self._k.sched_dev = torch.empty((3,), dtype=torch.float32,
+                                        device=dev)
+        self._put_perm = _Upload(self.perm)
+        self._put_sched = _Upload(self._k.sched_dev)
+        self._empty = torch.empty((0,), dtype=torch.float32, device=dev)
+        self._empty_perm = self.perm[:0]
+        self.graph = None
+        self._graph_calls = (0, 0)
+        self._graph_row = 0
+        self.set_epoch(epoch)
 
     @property
     def state_len(self) -> int:
         return self._k.state.numel()
 
-    def window(self, perm, n_batches: int, pending=None,
-               extra: int = 0) -> Tensor:
+    def set_epoch(self, epoch: int) -> None:
+        """Write the schedule row of Adam counter ``epoch`` (the learning
+        rate and both bias corrections) that the launches read."""
+        self._put_sched(torch.from_numpy(_schedule_rows(
+            epoch, 1, **self._schedule)))
+
+    def set_perm(self, perm) -> None:
+        """Copy an epoch's tile permutation (all the tiles, checked by the
+        caller) into :attr:`perm`."""
+        self._put_perm(torch.as_tensor(perm).to(torch.int32))
+
+    def load(self, params, m, v) -> None:
+        """Copy a state into the state buffer, the scalars into row 0."""
+        torch.cat(_state_parts(params, m, v), out=self._k.state[:-9])
+        self._k.row = 0
+
+    def window(self, perm, n_batches: int, pending=None, extra: int = 0,
+               out: Tensor | None = None) -> Tensor:
         """Run ``n_batches`` batches (``perm``, their tiles), first
         applying ``pending`` if given. Returns ``[pending | loss sums |
-        n_real | extra]`` (``pending_len + 2 n_batches + extra`` floats;
-        the last ``extra`` are the caller's to fill)."""
+        n_real | extra]`` (``pending_len + 2 n_batches + extra`` floats,
+        in ``out`` if given, 16-byte aligned; the last ``extra`` are the
+        caller's to fill)."""
         n_p = self.pending_len
-        out = torch.empty((n_p + 2 * n_batches + extra,),
-                          dtype=torch.float32, device=self._k.dev)
+        if out is None:
+            out = torch.empty((n_p + 2 * n_batches + extra,),
+                              dtype=torch.float32, device=self._k.dev)
+        elif out.numel() < n_p + 2 * n_batches or out.data_ptr() % 16:
+            raise ValueError("out must hold the pending buffer and the loss "
+                             "rows, 16-byte aligned")
         self._k.run(perm, n_batches, 1, out[n_p:n_p + n_batches],
                     out[n_p + n_batches:n_p + 2 * n_batches],
                     None if pending is None else _aligned(pending), out[:n_p])
@@ -777,8 +888,8 @@ class WindowCalls:
 
     def flush(self, pending) -> None:
         """The epoch's last call: apply ``pending``, no batch."""
-        empty = torch.empty((0,), dtype=torch.float32, device=self._k.dev)
-        self._k.run(empty.int(), 0, 1, empty, empty, _aligned(pending))
+        self._k.run(self._empty_perm, 0, 1, self._empty, self._empty,
+                    _aligned(pending))
 
     def state(self) -> Tensor:
         """The state buffer (scalars in row 0), for averaging."""
@@ -791,6 +902,38 @@ class WindowCalls:
     def outputs(self) -> tuple[QFAParams, QFAParams, QFAParams]:
         """params, m, v after the last call (views of the state)."""
         return self._k.outputs()
+
+    def snapshot(self) -> tuple[QFAParams, QFAParams, QFAParams]:
+        """params, m, v after the last call, as views of a copy of the
+        state: the next epoch's calls leave them as they are."""
+        return self._k.outputs(self._k.state.clone())
+
+    def capture(self, issue) -> None:
+        """Capture ``issue()``, an epoch's window calls from a loaded
+        state and whatever the caller issues between them, into one CUDA
+        graph (:attr:`graph`) on torch's capture stream. Nothing runs
+        until :meth:`replay`; the state's buffers stay as they are."""
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        k = self._k
+        row, k.row, k.captured = k.row, 0, [0, 0]
+        try:
+            # only this thread's calls are checked: NCCL's and the process
+            # group's own threads may call CUDA while it captures
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                issue()
+            self._graph_calls, self._graph_row = tuple(k.captured), k.row
+        finally:
+            k.captured, k.row = None, row
+        graph.instantiate()
+        self.graph = graph
+
+    def replay(self) -> None:
+        """Run the captured epoch from the loaded state on the current
+        stream; its launches count as the eager calls would."""
+        self._k.scalars_to_row0()
+        self.graph.replay()
+        self._k.row = self._graph_row
+        _count(*self._graph_calls)
 
 
 @torch.no_grad()

@@ -48,8 +48,12 @@ def tile_perm(perm, shape, n_tiles: int) -> torch.Tensor:
         rows = shape[0] if len(shape) > 1 else 1
         perm = torch.stack([torch.randperm(n_tiles, generator=perm)
                             for _ in range(rows)])
-    perm = torch.tensor(np.asarray(perm.cpu() if isinstance(
-        perm, torch.Tensor) else perm), dtype=torch.int64).reshape(shape)
+    # a tensor stays a tensor: on the card's host a torch.tensor of the
+    # numpy copy took most of a graph epoch's host time
+    # (dp_host_profile.py)
+    perm = (perm.detach().to("cpu", torch.int64) if isinstance(
+        perm, torch.Tensor) else torch.as_tensor(
+            np.asarray(perm), dtype=torch.int64)).reshape(shape)
     if perm.numel() and (int(perm.min()) < 0 or int(perm.max()) >= n_tiles):
         raise ValueError(f"tile_perm values must lie in [0, {n_tiles})")
     return perm

@@ -55,6 +55,11 @@ class DataMesh(NamedTuple):
     device: torch.device
     group: Any = None  #: the process group (None: the default group)
 
+    @property
+    def backend(self) -> str:
+        """The process group's backend: ``"nccl"``, ``"gloo"``, ..."""
+        return str(dist.get_backend(self.group))
+
     def all_reduce(self, vec: Tensor) -> Tensor:
         """Sum ``vec`` across the ranks in place, on the tensor's device
         (on the current stream: nothing waits on the host for NCCL)."""

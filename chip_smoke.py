@@ -16,7 +16,9 @@ made from a seed:
    flux/error type (float32, bfloat16) and flags (the other planes' and
    the outputs' types read at run time, or all float32) the prediction
    kernel's registers, spills, dynamic shared memory and resident blocks
-   per SM in both of its modes;
+   per SM in both of its modes; the same for the tensor-core body
+   (``csrc/predict_tc.cu``, nh 1-10 x bfloat16 and float32 flux/error)
+   in three plane modes;
 3. kernel against its plain version on the same CUDA tensors, within the
    tolerances of the CPU parity tests, at SDSS width (4096 spectra) and
    DESI width (Npix 9243, Nb 2238; 512 spectra), in each mode of the path;
@@ -25,11 +27,14 @@ made from a seed:
    and rows 0-63 and row 1000 predicted alone against the 4096 batch;
    then the bfloat16 modes at SDSS (512 spectra) and DESI width (128), nh
    1, 8 and 10, in both modes, full output and stats_only: bf16
-   flux/error, bf16 mask and zabs planes, and all four, each against the
-   plain version on the same planes, bitwise against the float32 kernel
-   on the planes upcast, and rows 0-63 alone bitwise; and
-   ``out_dtype=bfloat16``, its planes bitwise the float32 call's cast and
-   its float32 stats bitwise unchanged;
+   flux/error (the tensor-core body), bf16 mask and zabs planes (float32
+   flux: predict.cu), and all four, each against the plain version on the
+   same planes, bitwise against the same body's float32 kernel on the
+   planes upcast (for bf16 flux/error the tensor-core body's own float32
+   instantiation), and rows 0-63 alone bitwise; ``out_dtype=bfloat16``,
+   its planes bitwise the float32 call's cast and its float32 stats
+   bitwise unchanged; low-noise SDSS data (4096 spectra) on bf16
+   flux/error, ll to rtol 2e-4; each body's launches counted;
 4. main path: ``qfa_tpu_torch.cli.main(["--type", "predict", ...])`` on
    2048 spectra written to disk, checked against the plain path on the
    CPU; the CLI must have read them with the native npz reader
@@ -39,7 +44,9 @@ made from a seed:
 6. times of the kernel and the plain version at 65536 spectra (a survey
    sweep), 8192 (the predict CLI's chunk), 64 (serving's max_batch) and 1,
    full output and stats_only, each with its GB/s and its share of its
-   bound;
+   bound; then on bf16 planes at 65536, 8192 and 64 spectra, in turns on
+   the same planes: the tensor-core body, predict.cu on the same bf16
+   planes, and predict.cu's float32 kernel on the planes upcast;
 7. the epoch kernel against its plain version on the same CUDA tensors:
    SDSS width (4096 spectra, batch 512, 2 epochs) and DESI width (512
    spectra, 1 epoch), derived and plane layouts, and the training CLI's
@@ -135,15 +142,20 @@ made from a seed:
     epoch;
 18. the survey-scale OOD sweep: 1,474,560 SDSS spectra made on the card
     and kept there as bfloat16 flux/error planes (derived mask, zq
-    column), one ``stats_only`` call over them bitwise equal to one over
-    their float32 upcast, a 4,096-row slice alone bitwise, 65,536 rows
-    against the plain version; ``select_ood`` of the top 1,024, predicted
-    with bf16 output planes, ``sample_posterior_continua`` on 64 of them;
-    ``predict_resident`` and ``score_resident`` over the first 65,536
-    spectra's float32 originals against the kernel; every launch
-    counted. Readings: the sweep's time per call on bf16 and float32
-    planes, full output at 65,536 spectra in the four (plane, output)
-    dtype pairs, the resident functions' times, peak device memory and
+    column), one ``stats_only`` call over them on the tensor-core body
+    bitwise equal to its float32 instantiation over their float32 upcast
+    and within TOL of predict.cu's float32 kernel on it, a 4,096-row
+    slice alone bitwise, 65,536 rows against the plain version;
+    ``select_ood`` of the top 1,024, predicted with bf16 output planes,
+    ``sample_posterior_continua`` on 64 of them; ``predict_resident`` and
+    ``score_resident`` over the first 65,536 spectra's float32 originals
+    against the kernel; every launch counted, per body. Readings, in
+    turns on the same planes: the sweep on the tensor-core body, on
+    predict.cu on the same bf16 planes, on predict.cu's float32 kernel
+    and on the tensor-core body's float32 instantiation over the upcast;
+    full output at 65,536 spectra in the four (plane, output) dtype pairs
+    and on predict.cu on the bf16 planes; the plain version over the
+    whole sweep; the resident functions' times, peak device memory and
     the top-1,024 overlap of bf16 and float32 planes;
 19. the reference-API facade, profiling, NaN debugging and the MDN:
     ``compat.Dataloader`` over 2048 SDSS spectra on disk, moved to the
@@ -571,19 +583,37 @@ def check_bf16_out(name, f32, out):
               f"call's {'cast ' if b.dtype != torch.float32 else ''}bitwise")
 
 
+def witness_body(planes):
+    """The body of ``fused_predict`` on these flux/error planes: the
+    tensor-core body (``csrc/predict_tc.cu``) on bfloat16 flux and error,
+    ``csrc/predict.cu`` otherwise."""
+    return "tc" if all(t.dtype is torch.bfloat16 for t in planes) else "warp"
+
+
 def phase_bf16_vs_plain(device):
     """Phase 3's bfloat16 modes: at SDSS and DESI width and nh 1, 8, 10,
     in both modes, full output and stats_only, every case of BF16_CASES
     (a) within TOL of the plain version on the same planes, (b) bitwise
-    the float32 kernel on the planes upcast (exact), (c) rows 0-63 alone
-    bitwise the batch's; and ``out_dtype=bfloat16`` on float32 planes and
-    on each case's planes: its planes bitwise the float32-out call's
-    cast, its stats float32 and bitwise unchanged. Returns (max abs error
-    against the plain version, calls made)."""
-    from qfa_tpu_torch.ops.infer_kernel import fused_predict, fused_predict_plain
+    the same body's float32 kernel on the planes upcast (exact): the
+    tensor-core body's own float32 instantiation where flux and error are
+    bf16, predict.cu where they are float32, (c) rows 0-63 alone bitwise
+    the batch's; and ``out_dtype=bfloat16`` on float32 planes and on each
+    case's planes: its planes bitwise the float32-out call's cast, its
+    stats float32 and bitwise unchanged. Then low-noise data (SDSS, 4096
+    spectra) on bf16 flux/error, both modes, ll to rtol 2e-4. Every call
+    is counted per body. Returns (max abs error against the plain
+    version, calls made)."""
+    from qfa_tpu_torch.ops import infer_kernel
+    from qfa_tpu_torch.ops.infer_kernel import (
+        _fused_predict_body,
+        fused_predict,
+        fused_predict_plain,
+    )
 
     bf = torch.bfloat16
     worst, calls = 0.0, 0
+    tc0, warp0 = infer_kernel.TC_LAUNCHES, infer_kernel.WARP_LAUNCHES
+    want_tc = 0
 
     def cast(ts, names, which):
         return [None if t is None else t.to(bf) if name in which else t
@@ -620,9 +650,11 @@ def phase_bf16_vs_plain(device):
                             **kw)
                         err, _ = compare(tag, got, want, TOL)
                         worst = max(worst, err)
-                        check_bitwise(f"{tag} against float32 on the "
-                                      "upcast planes", got, fused_predict(
-                                          params, mu, *upcast(p_b),
+                        body = witness_body(p_b)
+                        check_bitwise(f"{tag} against the {body} body's "
+                                      "float32 kernel on the upcast planes",
+                                      got, _fused_predict_body(
+                                          body, params, mu, *upcast(p_b),
                                           *upcast(a_b),
                                           stats_only=stats_only, **kw))
                         rows = slice(0, 64)
@@ -633,21 +665,55 @@ def phase_bf16_vs_plain(device):
                         check_bitwise(f"{tag}: rows 0-63 alone", alone,
                                       rows_of(got, rows))
                         calls += 3
+                        want_tc += 3 * (body == "tc")
                         full = full if stats_only else got
                     check_bf16_out(name, full, fused_predict(
                         params, mu, *p_b, *a_b, out_dtype=bf, **kw))
                     calls += 1
+                    want_tc += body == "tc"
                 check_bf16_out(f"{label} nh={nh} {mode}", fused_predict(
                     params, mu, *planes, *args, **kw), fused_predict(
                     params, mu, *planes, *args, out_dtype=bf, **kw))
                 calls += 2
                 say(f"  {label} nh={nh} {mode}, bfloat16: {', '.join(seen)}"
                     " (full output and stats_only) within TOL of the plain "
-                    "version on the same planes, bitwise equal to the "
-                    "float32 kernel on the planes upcast, rows 0-63 alone "
-                    "bitwise; out_dtype=bfloat16 (on these planes and on "
-                    "float32 ones) planes bitwise the float32 planes cast, "
-                    "stats bitwise unchanged")
+                    "version on the same planes, bitwise equal to the same "
+                    "body's float32 kernel on the planes upcast (the "
+                    "tensor-core body's own float32 instantiation for bf16 "
+                    "flux/error), rows 0-63 alone bitwise; "
+                    "out_dtype=bfloat16 (on these planes and on float32 "
+                    "ones) planes bitwise the float32 planes cast, stats "
+                    "bitwise unchanged")
+    # low noise: ll's Woodbury cancellation, through the tc body's products
+    tol = dict(TOL)
+    tol["ll"] = dict(rtol=LOW_NOISE_LL_RTOL, atol=0.0)
+    grid, params, mu, planes, modes = predict_problem(SDSS, 4096, device,
+                                                      "low-noise")
+    p_b = [t.to(bf) for t in planes]
+    for mode, args, kw in modes:
+        for stats_only in (False, True):
+            tag = (f"SDSS low-noise {mode} bf16 flux/error"
+                   f"{' stats_only' if stats_only else ''}")
+            got = fused_predict(params, mu, *p_b, *args,
+                                stats_only=stats_only, **kw)
+            err, detail = compare(tag, got, fused_predict_plain(
+                params, mu, *p_b, *args, stats_only=stats_only, **kw), tol)
+            worst = max(worst, err)
+            check_bitwise(f"{tag} against the tc body's float32 kernel on "
+                          "the upcast planes", got, _fused_predict_body(
+                              "tc", params, mu, *upcast(p_b), *args,
+                              stats_only=stats_only, **kw))
+            calls += 2
+            want_tc += 2
+            say(f"  {tag}: n=4096 ll rtol {LOW_NOISE_LL_RTOL}; "
+                f"max_abs_err={err!r}; max rel err {detail}")
+    tc = infer_kernel.TC_LAUNCHES - tc0
+    warp = infer_kernel.WARP_LAUNCHES - warp0
+    check(tc == want_tc and tc + warp == calls,
+          f"phase 3's bf16 modes: {tc} tc-body and {warp} warp-body "
+          f"launches of {calls} calls; expected {want_tc} tc")
+    say(f"  launches by body: tensor-core (predict_tc.cu) {tc}, warp "
+        f"(predict.cu) {warp}")
     return worst, calls
 
 
@@ -693,6 +759,53 @@ def predict_build_report(lib, log):
                   f"predict_kernel nh={nh} {ptype} flags={flags} {mode}: "
                   f"occupancy rc {rc}, {k.value} blocks per SM at "
                   f"{b.value} B")
+            r["modes"][mode] = (b.value, k.value)
+    return dict(sorted(report.items()))
+
+
+#: the tensor-core body's launch geometry is reported in these modes:
+#: (name, derive_mask, mask_bf16, derive_zabs, zabs_bf16)
+TC_MODES = (("derived mask + zq column", 1, 0, 1, 0),
+            ("bf16 mask plane + bf16 zabs plane", 0, 1, 0, 1),
+            ("float32 mask plane + float32 zabs plane", 0, 0, 0, 0))
+
+
+def tc_build_report(lib, log):
+    """{(nh, flux/error type): registers, spill stores/loads (ptxas -v)
+    and, in each of TC_MODES, dynamic shared memory per block and
+    resident blocks per SM} of the tensor-core body
+    (``csrc/predict_tc.cu``); fails if an instantiation is missing or a
+    mode of one cannot launch."""
+    import ctypes
+
+    report, key = {}, None
+    for line in log.splitlines():
+        name = re.search(r"Compiling entry function '(\w+)'", line)
+        if name:
+            m = re.search(r"predict_tc_kernelILi(\d+)E(f|13__nv_bfloat16)E",
+                          name[1])
+            key = (int(m[1]), PLANE_TYPES[m[2]]) if m else None
+            if key is not None:
+                report[key] = {"registers": None, "spill": None}
+        elif key is not None and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill", line)
+            report[key]["spill"] = f"{st}/{ld}"
+        elif key is not None and "registers" in line:
+            report[key]["registers"] = int(re.search(r"(\d+) registers",
+                                                     line)[1])
+    want = sorted((nh, t) for nh in range(1, 11) for t in PLANE_TYPES.values())
+    check(sorted(report) == want,
+          f"ptxas reported predict_tc_kernel for {sorted(report)}")
+    for (nh, ptype), r in sorted(report.items()):
+        r["modes"] = {}
+        for mode, dm, mb, dz, zb in TC_MODES:
+            b, k = ctypes.c_int(), ctypes.c_int()
+            rc = lib.qfa_predict_tc_occupancy(
+                nh, int(ptype == "bfloat16"), dm, mb, dz, zb, 0,
+                ctypes.byref(b), ctypes.byref(k))
+            check(rc == 0 and k.value >= 1,
+                  f"predict_tc_kernel nh={nh} {ptype} {mode}: occupancy rc "
+                  f"{rc}, {k.value} blocks per SM at {b.value} B")
             r["modes"][mode] = (b.value, k.value)
     return dict(sorted(report.items()))
 
@@ -858,6 +971,8 @@ def zero_counts():
         mod.LAUNCHES = 0
     kernel_modules()[1].WINDOW_LAUNCHES = 0  # epoch_kernel's window mode
     kernel_modules()[0].BF16_LAUNCHES = 0  # infer_kernel's bf16 modes
+    kernel_modules()[0].TC_LAUNCHES = 0  # ... and its two bodies
+    kernel_modules()[0].WARP_LAUNCHES = 0
 
 
 def other_counts(mod):
@@ -935,9 +1050,59 @@ def phase_times(device, reps=5):
             _, by_name, _, _, counts = profile_run(
                 lambda: [runs["kernel"]() for _ in range(PROFILED_CALLS)])
             spans = {k: v for k, v in (by_name or {}).items()
-                     if "predict_kernel" in k}
+                     if re.search(r"predict(_tc)?_kernel", k)}
             t["device"] = None if not spans else \
                 sum(spans.values()) * 1e3 / sum(counts[k] for k in spans)
+            out[n, stats_only] = t
+    return out
+
+
+#: phase 6's bfloat16 readings: these sizes
+BF16_SIZES = (65536, 8192, 64)
+
+
+def phase_bf16_times(device, reps=5):
+    """Phase 6's bfloat16 readings on phase 6's spectra (derived layout)
+    at BF16_SIZES, full output (bf16 continuum/std) and stats_only, on the
+    same planes in turns (CUDA events per call): the tensor-core body on
+    bf16 flux/error (``fused_predict``), the warp body (predict.cu) on the
+    same bf16 planes (its private route), and predict.cu's float32 kernel
+    on the planes upcast (float32 outputs). Returns {(n, stats_only):
+    {name: ms}, with "bounds": {name: (ms, by, bytes)}}."""
+    from qfa_tpu_torch.data.grid import make_grid
+    from qfa_tpu_torch.ops.common import loglam_row, zq_column
+    from qfa_tpu_torch.ops.infer_kernel import _fused_predict_body, fused_predict
+
+    bf = torch.bfloat16
+    grid = make_grid(**SDSS)
+    params, mu = seeded_params(grid, device)
+    flux, error, mask, zq = draw_spectra(params, mu, grid, BF16_SIZES[0],
+                                         SEED + 3)
+    fb, eb = (flux * mask).to(bf), (error * mask).to(bf)
+    ff, ef = fb.float(), eb.float()
+    zqc = zq_column(zq)
+    kw = dict(loglam=loglam_row(grid.wav, device=device), derive_zabs=True)
+    out = {}
+    for n in BF16_SIZES:
+        for stats_only in (False, True):
+            a16 = (params, mu, fb[:n], eb[:n], zqc[:n])
+            a32 = (params, mu, ff[:n], ef[:n], zqc[:n])
+            k16 = dict(stats_only=stats_only, out_dtype=bf, **kw)
+            runs = {
+                "tc body, bf16 planes": lambda: fused_predict(*a16, **k16),
+                "warp body, bf16 planes": lambda: _fused_predict_body(
+                    "warp", *a16, **k16),
+                "float32 kernel, upcast": lambda: fused_predict(
+                    *a32, stats_only=stats_only, **kw),
+            }
+            t = turns(runs, reps)
+            t["bounds"] = {
+                "tc body, bf16 planes": predict_bound(
+                    grid, n, stats_only, 2, 2, tensor_cores=True),
+                "warp body, bf16 planes": predict_bound(grid, n, stats_only,
+                                                        2, 2),
+                "float32 kernel, upcast": predict_bound(grid, n, stats_only),
+            }
             out[n, stats_only] = t
     return out
 
@@ -2919,7 +3084,11 @@ def phase_sweep(device, smi):
     )
     from qfa_tpu_torch.ops import infer_kernel
     from qfa_tpu_torch.ops.common import loglam_row
-    from qfa_tpu_torch.ops.infer_kernel import fused_predict, fused_predict_plain
+    from qfa_tpu_torch.ops.infer_kernel import (
+        _fused_predict_body,
+        fused_predict,
+        fused_predict_plain,
+    )
 
     bf = torch.bfloat16
     grid = make_grid(**SDSS)
@@ -2943,8 +3112,9 @@ def phase_sweep(device, smi):
     zero_counts()
     sweep = fused_predict(params, mu, flux, error, zqc, None,
                           stats_only=True, **kw)
-    sweep32 = fused_predict(params, mu, *twin, zqc, None, stats_only=True,
-                            **kw)
+    # the exact witness: the tc body's own float32 instantiation
+    sweep32 = _fused_predict_body("tc", params, mu, *twin, zqc, None,
+                                  stats_only=True, **kw)
     start, rows = SWEEP_SLICE
     sl = slice(start, start + rows)
     alone = fused_predict(params, mu, flux[sl], error[sl], zqc[sl], None,
@@ -2968,6 +3138,7 @@ def phase_sweep(device, smi):
     torch.cuda.synchronize()
     launches, bf16_launches = infer_kernel.LAUNCHES, \
         infer_kernel.BF16_LAUNCHES
+    tc, warp = infer_kernel.TC_LAUNCHES, infer_kernel.WARP_LAUNCHES
     others = other_counts(infer_kernel)
     # ... to here
     path_s = time.perf_counter() - t0
@@ -2976,9 +3147,20 @@ def phase_sweep(device, smi):
           f"phase 18 made 6 prediction-kernel calls, 3 of them bfloat16, "
           f"and no other kernel's; the counts read {launches}, "
           f"{bf16_launches} and {others}")
+    check(tc == 4 and warp == 2,
+          f"phase 18's path ran the tensor-core body 4 times (the sweep, "
+          f"its float32 witness, the slice, the selected spectra) and "
+          f"predict.cu twice (the float32 originals); the counts read "
+          f"{tc} and {warp}")
 
-    check_bitwise("sweep: bfloat16 planes against their float32 upcast",
-                  sweep, sweep32)
+    check_bitwise("sweep: bfloat16 planes against the tc body's float32 "
+                  "instantiation on their upcast", sweep, sweep32)
+    old32 = fused_predict(params, mu, *twin, zqc, None, stats_only=True,
+                          **kw)
+    err_old, detail_old = compare(
+        "sweep against predict.cu's float32 kernel on the upcast", sweep,
+        old32, TOL)
+    del old32
     check_bitwise(f"sweep: rows {start}-{start + rows - 1} alone", alone,
                   rows_of(sweep, sl))
     want = fused_predict_plain(params, mu, flux[k], error[k], zqc[k], None,
@@ -3017,10 +3199,15 @@ def phase_sweep(device, smi):
         f"{made_s:.1f} s ({2 * nbytes(flux) / 1e9:.2f} GB of bfloat16 "
         f"flux/error planes, {2 * nbytes(twin[0]) / 1e9:.2f} GB float32 "
         f"twin); the path ran in {path_s:.1f} s: {launches} kernel calls, "
-        f"{bf16_launches} of them bfloat16, no other kernel; peak device "
-        f"memory {peak_gb:.2f} GB")
-    say(f"  stats_only sweep over bfloat16 planes bitwise equal to the "
-        f"float32 upcast over all {SWEEP_N} rows; rows {start}-"
+        f"{bf16_launches} of them bfloat16, {tc} of the tensor-core body "
+        f"(predict_tc.cu), {warp} of predict.cu, no other kernel; peak "
+        f"device memory {peak_gb:.2f} GB")
+    say(f"  the sweep on all {SWEEP_N} rows within TOL of predict.cu's "
+        f"float32 kernel on the upcast: max_abs_err={err_old!r} "
+        f"({detail_old})")
+    say(f"  stats_only sweep over bfloat16 planes bitwise equal to the tc "
+        f"body's float32 instantiation on the upcast over all {SWEEP_N} "
+        f"rows; rows {start}-"
         f"{start + rows - 1} alone bitwise; rows 0-{SWEEP_KEEP - 1} against "
         f"the plain version max_abs_err={err!r} ({detail}); top "
         f"{SWEEP_TOP_K} selected, predicted with bfloat16 planes (stats "
@@ -3033,40 +3220,52 @@ def phase_sweep(device, smi):
         "(a reading of data quantization)")
 
     # readings: launches from here on are not the path's
-    def sweep_call(planes):
-        return lambda: fused_predict(params, mu, *planes, zqc, None,
-                                     stats_only=True, **kw)
+    def sweep_call(body, planes):
+        return lambda: _fused_predict_body(body, params, mu, *planes, zqc,
+                                           None, stats_only=True, **kw)
 
-    runs = {"bfloat16": sweep_call((flux, error)),
-            "float32": sweep_call(twin)}
+    runs = {"tc body, bfloat16 planes": sweep_call(None, (flux, error)),
+            "warp body (predict.cu), the same bfloat16 planes": sweep_call(
+                "warp", (flux, error)),
+            "predict.cu's float32 kernel, their float32 upcast": sweep_call(
+                None, twin),
+            "tc body's float32 instantiation, the upcast": sweep_call(
+                "tc", twin)}
     t = turns(runs, SWEEP_REPS)
+    sweep_ms = {}
     for name, ms in t.items():
         b_ms, b_by, b_bytes = predict_bound(
-            grid, SWEEP_N, True, plane_bytes=2 if name == "bfloat16" else 4)
-        say(f"  sweep ({smi}), {SWEEP_N} spectra, stats_only, {name} planes:"
-            f" {ms!r} ms per call (CUDA events; "
+            grid, SWEEP_N, True, plane_bytes=2 if "bfloat16" in name else 4,
+            tensor_cores=name.startswith("tc"))
+        sweep_ms[name] = (ms, (b_ms, b_by))
+        say(f"  sweep ({smi}), {SWEEP_N} spectra, stats_only, {name}:"
+            f" {ms!r} ms per call (CUDA events, in turns; "
             f"{SWEEP_N / ms * 1e3:.0f} spectra/s, "
             f"{b_bytes / ms / 1e6:.1f} GB/s, {b_ms / ms:.3f} of its bound "
             f"{b_ms:.4f} ms by {b_by})")
     del twin, runs
     bf_k = (flux[k], error[k])
     pairs = {}
-    for pname, planes in (("float32", (kf, ke)), ("bfloat16", bf_k)):
+    for pname, planes, body in (("float32", (kf, ke), None),
+                                ("bfloat16", bf_k, None),
+                                ("bfloat16, warp body", bf_k, "warp")):
         for oname, odt in (("float32", torch.float32), ("bfloat16", bf)):
-            pairs[pname, oname] = (lambda planes=planes, odt=odt:
-                                   fused_predict(params, mu, *planes, kzq,
-                                                 None, out_dtype=odt, **kw))
+            pairs[pname, oname] = (
+                lambda planes=planes, odt=odt, body=body: _fused_predict_body(
+                    body, params, mu, *planes, kzq, None, out_dtype=odt,
+                    **kw))
     t = turns(pairs, SWEEP_REPS)
     out = {}
     for (pname, oname), ms in t.items():
-        pb, ob = (2 if pname == "bfloat16" else 4), \
+        pb, ob = (2 if pname.startswith("bfloat16") else 4), \
             (2 if oname == "bfloat16" else 4)
-        b = predict_bound(grid, SWEEP_KEEP, plane_bytes=pb, out_bytes=ob)
+        b = predict_bound(grid, SWEEP_KEEP, plane_bytes=pb, out_bytes=ob,
+                          tensor_cores=pname == "bfloat16")
         _, by_name, _, _, counts = profile_run(
             lambda fn=pairs[pname, oname]: [fn() for _ in
                                             range(PROFILED_CALLS)])
         spans = {n: v for n, v in (by_name or {}).items()
-                 if "predict_kernel" in n}
+                 if re.search(r"predict(_tc)?_kernel", n)}
         dev = None if not spans else \
             sum(spans.values()) * 1e3 / sum(counts[n] for n in spans)
         out[pname, oname] = dict(ms=ms, device=dev, bound=b)
@@ -3074,8 +3273,10 @@ def phase_sweep(device, smi):
             if dev is None else (f"device {dev!r} ms per launch "
                                  f"(torch.profiler, {b[0] / dev:.3f} of "
                                  "its bound)")
-        say(f"  full output ({smi}), {SWEEP_KEEP} spectra, {pname} planes, "
-            f"{oname} continuum/std: {ms!r} ms per call (CUDA events; "
+        body = "predict.cu" if pname != "bfloat16" else "the tc body"
+        say(f"  full output ({smi}), {SWEEP_KEEP} spectra, {pname} planes "
+            f"({body}), {oname} continuum/std: {ms!r} ms per call (CUDA "
+            "events, in turns; "
             f"{b[2] / ms / 1e6:.1f} GB/s, {b[0] / ms:.3f} of its bound "
             f"{b[0]:.4f} ms by {b[1]}); {dev_s}")
     plain_ms = time_cuda(lambda: fused_predict_plain(
@@ -3086,17 +3287,27 @@ def phase_sweep(device, smi):
     score_ms = time_cuda(lambda: score_resident(
         params, mu, kf, ke, kzabs, kmask, batch_size=RESIDENT_BATCH[1]),
         SWEEP_REPS)
+    # the plain version over the whole sweep, in calls of SWEEP_KEEP rows
+    # (each row's outputs depend on its row alone)
+    def plain_sweep():
+        for s0 in range(0, SWEEP_N, SWEEP_KEEP):
+            c = slice(s0, s0 + SWEEP_KEEP)
+            fused_predict_plain(params, mu, flux[c], error[c], zqc[c], None,
+                                stats_only=True, **kw)
+
+    plain_sweep_ms = time_cuda(plain_sweep, 1)
     say(f"  ({smi}) plain version, {SWEEP_KEEP} spectra, bfloat16 planes "
-        f"and continuum/std: {plain_ms!r} ms; predict_resident (batch "
+        f"and continuum/std: {plain_ms!r} ms; over the whole sweep "
+        f"(stats_only, in calls of {SWEEP_KEEP}): {plain_sweep_ms!r} ms; "
+        f"predict_resident (batch "
         f"{RESIDENT_BATCH[0]}) {res_ms!r} ms, score_resident (batch "
         f"{RESIDENT_BATCH[1]}) {score_ms!r} ms over {SWEEP_KEEP} float32 "
         "spectra (CUDA events)")
     del flux, error, zqc, keep, kf, ke, kzabs, kmask, kzq, bf_k, pairs
     torch.cuda.empty_cache()
-    bf16 = out["bfloat16", "bfloat16"]
-    return {"launches": bf16_launches, "worst": max(err, err_r),
-            "ms": bf16["ms"], "plain_ms": plain_ms,
-            "bound": bf16["bound"][:2]}
+    ms, bnd = sweep_ms["tc body, bfloat16 planes"]
+    return {"launches": tc, "worst": err, "ms": ms,
+            "plain_ms": plain_sweep_ms, "bound": bnd}
 
 
 def read_engines(paths):
@@ -3859,12 +4070,15 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def predict_bound(grid, n, stats_only=False, plane_bytes=4, out_bytes=4):
+def predict_bound(grid, n, stats_only=False, plane_bytes=4, out_bytes=4,
+                  tensor_cores=False):
     """(ms, "bytes" or "operations", bytes) of the prediction kernel on n
     spectra in the derived layout: flux, error (``plane_bytes`` each per
     pixel), zq column, loglam, mu and the params in; ll, n_obs, hmean,
     hcov (and continuum and std, ``out_bytes`` each per pixel) out; the
-    FMAs of K triangle + W (and continuum + std), 2 operations each."""
+    FMAs of K triangle + W (and continuum + std), 2 operations each, on
+    the FP32 pipes, or with ``tensor_cores`` in three TF32 passes on the
+    tensor cores (the per-pixel exp/log chain is not counted)."""
     npix, nb = grid.npix, grid.nb
     ntri = NH * (NH + 1) // 2
     params = 4 * (npix * NH + npix + nb + 3)
@@ -3872,6 +4086,8 @@ def predict_bound(grid, n, stats_only=False, plane_bytes=4, out_bytes=4):
     n_bytes = (plane_bytes * 2 * n * npix + 4 * (2 * n + 2 * npix) + params
                + 4 * n * (2 + NH + NH * NH) + out_bytes * planes * n * npix)
     flops = 2 * (ntri + NH) * (1 if stats_only else 2) * n * npix
+    if tensor_cores:
+        return (*bound(n_bytes, 3 * flops, TF32_FLOP_PER_S), n_bytes)
     return (*bound(n_bytes, flops), n_bytes)
 
 
@@ -3954,7 +4170,7 @@ def main(argv=None):
         name = re.search(r"Compiling entry function '(\w+)'", line)
         if name:
             kernel = name[1]
-        elif "predict_kernel" in kernel:
+        elif "predict_kernel" in kernel or "predict_tc_kernel" in kernel:
             continue  # reported per nh below
         elif "registers" in line or ("spill" in line
                                      and " 0 bytes spill" not in line):
@@ -3967,6 +4183,14 @@ def main(argv=None):
             f"{r['spill']} spill stores/loads (bytes); dynamic shared memory"
             " and resident blocks per SM: " + ", ".join(
                 f"{m} {b} B, {k}" for m, (b, k) in r["modes"].items()))
+    for (nh, ptype), r in tc_build_report(_build.load_library(),
+                                          _build.build_log()).items():
+        say(f"  predict_tc_kernel nh={nh}, {ptype} flux/error"
+            f"{' (the exact witness)' if ptype == 'float32' else ''}: "
+            f"{r['registers']} registers, {r['spill']} spill stores/loads "
+            "(bytes); dynamic shared memory and resident blocks per SM: "
+            + ", ".join(f"{m} {b} B, {k}"
+                        for m, (b, k) in r["modes"].items()))
 
     grid = make_grid(**SDSS)
     if want(3):
@@ -4026,6 +4250,16 @@ def main(argv=None):
                 f"{b_ms / t['kernel']:.3f} of its bound {b_ms:.4f} ms by "
                 f"{b_by}); {dev}; plain {t['plain']!r} ms "
                 f"({n / t['plain'] * 1e3:.0f} spectra/s)")
+        for (n, stats_only), t in phase_bf16_times(device).items():
+            bnd = t.pop("bounds")
+            mode = "stats_only" if stats_only else \
+                "full output, bf16 continuum/std"
+            say(f"phase 6 bfloat16 ({smi}), SDSS width, derived layout, {n} "
+                f"spectra, {mode}, per call (CUDA events, in turns): "
+                + "; ".join(
+                    f"{name} {ms!r} ms ({bnd[name][0] / ms:.3f} of its bound "
+                    f"{bnd[name][0]:.4f} ms by {bnd[name][1]})"
+                    for name, ms in t.items()))
 
     if want(7):
         say("phase 7 epoch kernel vs plain version on the card:")
@@ -4320,7 +4554,7 @@ def main(argv=None):
               "qfa_tpu/ops/epoch_kernel.py:478", window_launches,
               window_worst, dpt["sync_dp K=1"]["ms"], dpt["plain_ms"],
               b_window),
-        entry("predict_kernel_bf16", "qfa_tpu_torch/csrc/predict.cu",
+        entry("predict_tc_kernel", "qfa_tpu_torch/csrc/predict_tc.cu",
               "qfa_tpu/ops/infer_kernel.py:126", sweep["launches"],
               max(worst_bf16, sweep["worst"]), sweep["ms"],
               sweep["plain_ms"], sweep["bound"]),

@@ -68,6 +68,30 @@ SIGNATURES = {
         ],
         ctypes.c_int,
     ),
+    "qfa_predict_tc_f32": (
+        [
+            _P, _P, _I,  # flux, error, planes_bf16
+            _P, _I, _I,  # zabs, zabs_ld, zabs_bf16
+            _P, _I,  # mask, mask_bf16
+            _P, _P, _P,  # mu, F, table
+            _P, _P, _P,  # psi, omega, loglam
+            _P, _P, _P,  # tau0, c0, beta (device scalars)
+            _F, _F, _F,  # law_a, law_b, law_c
+            _I, _I, _I, _I,  # n, npix, nb, nh
+            _I, _I,  # derive_mask, derive_zabs
+            _P, _P, _P, _P, _P, _P,  # ll, n_obs, hmean, hcov, cont, std
+            _I,  # out_bf16
+            _I, _P,  # device, stream
+        ],
+        ctypes.c_int,
+    ),
+    "qfa_predict_tc_occupancy": (
+        [_I, _I, _I, _I, _I, _I, _I, _P, _P],  # nh, planes_bf16,
+        # derive_mask, mask_bf16, derive_zabs, zabs_bf16, device, smem
+        # bytes, blocks per SM (int outputs)
+        ctypes.c_int,
+    ),
+    "qfa_predict_tc_chunk": ([], ctypes.c_int),
     "qfa_predict_occupancy": (
         [_I, _I, _I, _I, _I, _I, _P, _P],  # nh, planes_bf16, flags,
         # derive_mask, derive_zabs, device, smem bytes, blocks per SM (int

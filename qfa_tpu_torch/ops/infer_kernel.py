@@ -5,9 +5,14 @@ posterior latents ``hmean = K^-1 w`` / ``hcov = K^-1``, the unabsorbed
 continuum ``F hmean + mu`` and its uncertainty ``sqrt(diag(F hcov F^T))``.
 :func:`fused_predict` computes all of them:
 
-* on a CUDA tensor, in the hand-written CUDA kernel ``csrc/predict.cu``
-  (the port of ``qfa_tpu.ops.infer_kernel._predict_kernel``), built at
-  first use by :mod:`._build`; a launch that fails raises;
+* on a CUDA tensor, in a hand-written CUDA kernel (the port of
+  ``qfa_tpu.ops.infer_kernel._predict_kernel``), built at first use by
+  :mod:`._build`: bfloat16 flux and error planes go to
+  ``csrc/predict_tc.cu`` (tiles of 64 spectra, the products on the tensor
+  cores against the ``[tri(Gram) | F]`` table, :func:`gram_table`), float32
+  ones (a mixed pair is read as float32) to ``csrc/predict.cu`` (one warp
+  per spectrum); a launch that fails raises, and nothing falls back to the
+  other body or to the plain version;
 * on a CPU tensor, in :func:`fused_predict_plain`, the same function in
   plain torch ops — the reference the kernel is held against on the card.
 
@@ -22,9 +27,11 @@ per-spectrum stats, stay float32.
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..linalg import smallchol
@@ -38,8 +45,12 @@ __all__ = [
     "BF16_LAUNCHES",
     "FusedPredictOutputs",
     "LAUNCHES",
+    "TC_LAUNCHES",
+    "WARP_LAUNCHES",
     "fused_predict",
     "fused_predict_plain",
+    "gram_table",
+    "split_tf32",
 ]
 
 #: Launches of the CUDA prediction kernel in this process. Incremented
@@ -47,6 +58,10 @@ __all__ = [
 LAUNCHES = 0
 #: ... of them, the launches that read or store a bfloat16 plane
 BF16_LAUNCHES = 0
+#: ... of them, the launches of each body: ``csrc/predict_tc.cu`` (bfloat16
+#: flux and error) and ``csrc/predict.cu`` (float32 flux and error)
+TC_LAUNCHES = 0
+WARP_LAUNCHES = 0
 _LAUNCH_LOCK = threading.Lock()
 
 #: the kernel is instantiated for 1 <= nh <= 10 (nh*nh + nh + 2 <= 128,
@@ -168,7 +183,7 @@ def fused_predict_plain(
     ia = [a for a, _ in pairs]
     ib = [b for _, b in pairs]
     f = params.F
-    gram = f[:, ia] * f[:, ib]  # (Npix, ntri) lower-triangle Gram rows
+    gram = gram_table(f)[:, :len(pairs)]  # (Npix, ntri) lower Gram rows
     k_tri = w @ gram  # (N, ntri)
     full = torch.tensor([[tri_idx(a, b) for b in range(nh)]
                          for a in range(nh)], device=flux.device)
@@ -190,6 +205,83 @@ def fused_predict_plain(
         std = torch.sqrt(torch.clamp(var, min=0.0)).to(out_dtype)
     return FusedPredictOutputs(ll=ll, hmean=hmean, hcov=hcov, continuum=cont,
                                continuum_std=std, n_obs=n_obs)
+
+
+def gram_table(F: Tensor) -> Tensor:
+    """The ``[tri(Gram) | F]`` table, (Npix, ntri + nh): column ``tri_idx(a,
+    b)`` is ``F[:, a] * F[:, b]`` (the lower Gram triangle, elementwise
+    products of F's columns), then F's columns. JAX's ``fused_predict``
+    builds the same rows once outside its kernel (``rhst``, transposed)."""
+    ia, ib = zip(*tri_pairs(F.shape[1]))
+    return torch.cat([F[:, list(ia)] * F[:, list(ib)], F], dim=1)
+
+
+def split_tf32(x: Tensor) -> tuple[Tensor, Tensor]:
+    """x = hi + lo for the tensor cores' three TF32 passes: hi is x rounded
+    to TF32 (to nearest, ties away from zero, the 13 low bits cleared, as
+    cvt.rna rounds a finite float32), lo the rest ``x - hi`` (exact)
+    rounded the same way. Each is a float32 tensor holding TF32 values."""
+
+    def tf32(v):
+        return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+            torch.float32)
+
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def _pad8(k: int) -> int:
+    return -(-k // 8) * 8
+
+
+@functools.lru_cache(maxsize=16)
+def _tc_index(npix: int, nh: int, pad: int, device: str):
+    """Where each entry of the tc table comes from (shapes only, so it is
+    kept): two positions in ``[F.ravel(), 0, 1]`` whose product it is,
+    and whether it is a hi entry. Entry (8-pixel step k, column n, t, part,
+    s) is pixel 8 k + 4 s + t, column n of the padded ``[tri(Gram) | F]``
+    table; pixels past npix and the padding columns are 0 * 0, F's
+    columns F * 1."""
+    nt = nh * (nh + 1) // 2
+    ng, nf = _pad8(nt), _pad8(nh)
+    n = ng + nf
+    p = -(-npix // pad) * pad
+    zero, one = npix * nh, npix * nh + 1
+    col_a, col_b = np.full(n, -1), np.full(n, -1)  # -1: a zero factor
+    for c, (a, b) in enumerate(tri_pairs(nh)):
+        col_a[c], col_b[c] = a, b
+    col_a[ng:ng + nh] = np.arange(nh)
+    col_b[ng:ng + nh] = -2  # -2: the factor 1
+    k, col, t, part, s = np.meshgrid(np.arange(p // 8), np.arange(n),
+                                     np.arange(4), np.arange(2), np.arange(2),
+                                     indexing="ij")
+    pix = 8 * k + 4 * s + t
+
+    def where(c):
+        c = c[col]
+        at = np.where(c == -2, one, pix * nh + c)
+        return np.where((c == -1) | (pix >= npix), zero, at).ravel()
+
+    return (torch.as_tensor(where(col_a).astype(np.int32), device=device),
+            torch.as_tensor(where(col_b).astype(np.int32), device=device),
+            torch.as_tensor(part.ravel() == 0, device=device),
+            torch.tensor([0.0, 1.0], device=device))
+
+
+def _tc_table(F: Tensor, pad: int) -> Tensor:
+    """The table of ``csrc/predict_tc.cu``, split into TF32 hi and lo and
+    laid out in the order of its MMA fragments: the Gram triangle padded
+    to a multiple of 8 columns, then F padded the same way (N columns in
+    all), the pixel axis padded with zero rows to a multiple of ``pad``.
+    Entry (8-pixel step k, column n, t) holds hi, hi, lo, lo of pixels
+    8 k + t and 8 k + t + 4: the columns of :func:`gram_table`, each
+    product ``F_a * F_b`` taken once per call, elementwise in plain torch
+    (ten operations; the index maps depend on the shapes only)."""
+    npix, nh = F.shape
+    ia, ib, is_hi, zero_one = _tc_index(npix, nh, pad, str(F.device))
+    src = torch.cat([F.reshape(-1), zero_one])
+    hi, lo = split_tf32(src[ia] * src[ib])
+    return torch.where(is_hi, hi, lo)
 
 
 def _as_read(params, mu, flux, error, zabs, mask, loglam, derive_zabs):
@@ -217,7 +309,10 @@ def _as_read(params, mu, flux, error, zabs, mask, loglam, derive_zabs):
 
 
 def _launch(params, mu, flux, error, zabs, mask, *, law, stats_only, loglam,
-            derive_zabs, out_dtype) -> FusedPredictOutputs:
+            derive_zabs, out_dtype, body=None) -> FusedPredictOutputs:
+    """One launch of a CUDA body: ``"tc"`` (``csrc/predict_tc.cu``) or
+    ``"warp"`` (``csrc/predict.cu``); by default the flux/error type
+    chooses, bfloat16 the first."""
     from ._build import device_and_stream, load_library
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -230,6 +325,10 @@ def _launch(params, mu, flux, error, zabs, mask, *, law, stats_only, loglam,
         # the kernel reads flux and error as one type: the bfloat16 one
         # is read as float32 (exact, so the outputs are the same bits)
         flux, error = flux.float(), error.float()
+    if body is None:
+        body = "tc" if flux.dtype is bf16 else "warp"
+    if body not in ("tc", "warp"):
+        raise ValueError(f"no prediction body {body!r}")
     zplane = None if derive_zabs else zabs
     for name, t, is_plane in (
         ("flux", flux, True), ("error", error, True), ("mask", mask, True),
@@ -278,25 +377,33 @@ def _launch(params, mu, flux, error, zabs, mask, *, law, stats_only, loglam,
           int(mask is not None and mask.dtype is bf16), int(out_dtype is bf16))
     lib = load_library()
     index, stream = device_and_stream(dev)
-    rc = lib.qfa_predict_f32(
-        ptr(flux), ptr(error), bf[0], ptr(zabs), zabs.shape[1], bf[1],
-        ptr(mask), bf[2],
-        ptr(mu), ptr(params.F), ptr(params.Psi), ptr(params.omega),
-        ptr(loglam if derive_zabs else None),
-        ptr(params.tau0), ptr(params.c0), ptr(params.beta),
-        *law, n, npix, nb, nh, int(mask is None), int(derive_zabs),
-        ptr(ll), ptr(n_obs), ptr(hmean), ptr(hcov), ptr(cont), ptr(std),
-        bf[3], index, stream,
-    )
+    planes = (ptr(flux), ptr(error), bf[0], ptr(zabs), zabs.shape[1], bf[1],
+              ptr(mask), bf[2])
+    tail = (ptr(params.tau0), ptr(params.c0), ptr(params.beta),
+            *law, n, npix, nb, nh, int(mask is None), int(derive_zabs),
+            ptr(ll), ptr(n_obs), ptr(hmean), ptr(hcov), ptr(cont), ptr(std),
+            bf[3], index, stream)
+    loglam_p = ptr(loglam if derive_zabs else None)
+    if body == "tc":
+        table = _tc_table(params.F, lib.qfa_predict_tc_chunk())
+        rc = lib.qfa_predict_tc_f32(
+            *planes, ptr(mu), ptr(params.F), ptr(table), ptr(params.Psi),
+            ptr(params.omega), loglam_p, *tail)
+    else:
+        rc = lib.qfa_predict_f32(
+            *planes, ptr(mu), ptr(params.F), ptr(params.Psi),
+            ptr(params.omega), loglam_p, *tail)
     if rc != 0:
         raise RuntimeError(
-            f"CUDA prediction kernel launch failed: error {rc} "
+            f"CUDA prediction kernel launch failed ({body} body): error {rc} "
             f"({lib.qfa_cuda_error_string(rc).decode()})"
         )
-    global LAUNCHES, BF16_LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES, TC_LAUNCHES, WARP_LAUNCHES
     with _LAUNCH_LOCK:
         LAUNCHES += 1
         BF16_LAUNCHES += int(any(bf))
+        TC_LAUNCHES += int(body == "tc")
+        WARP_LAUNCHES += int(body == "warp")
     return out
 
 
@@ -331,9 +438,26 @@ def fused_predict(
     either ``out_dtype``.
 
     Tensors on the CPU run :func:`fused_predict_plain`. Tensors on a CUDA
-    device launch the CUDA kernel, or raise: contiguous, all on one
-    device.
+    device launch a CUDA kernel, or raise: contiguous, all on one
+    device. bfloat16 flux and error go to ``csrc/predict_tc.cu``, float32
+    ones to ``csrc/predict.cu``.
     """
+    return _fused_predict_body(
+        None, params, mu, flux, error, zabs, mask, tau_which=tau_which,
+        stats_only=stats_only, loglam=loglam, derive_zabs=derive_zabs,
+        out_dtype=out_dtype)
+
+
+@torch.no_grad()
+def _fused_predict_body(body, params, mu, flux, error, zabs, mask=None, *,
+                        tau_which="becker", stats_only=False, loglam=None,
+                        derive_zabs=False, out_dtype=torch.float32):
+    """:func:`fused_predict` with the CUDA body chosen: ``"tc"`` runs
+    ``csrc/predict_tc.cu`` whatever the flux/error type (on float32 planes
+    its float32 instantiation, the exact witness of the bfloat16 one),
+    ``"warp"`` runs ``csrc/predict.cu`` (on bfloat16 planes too, to time
+    it against the other); None chooses as :func:`fused_predict` does.
+    CPU tensors run the plain version."""
     _check_args(params, flux, error, zabs, mask, loglam, derive_zabs)
     params, mu, flux, error, zabs, mask, loglam = _as_read(
         params, mu, flux, error, zabs, mask, loglam, derive_zabs)
@@ -345,4 +469,5 @@ def fused_predict(
                                    tau_which=tau_which, **kw)
     if flux.device.type != "cuda":
         raise ValueError(f"fused_predict runs on cpu or cuda, not {flux.device}")
-    return _launch(params, mu, flux, error, zabs, mask, law=law, **kw)
+    return _launch(params, mu, flux, error, zabs, mask, law=law, body=body,
+                   **kw)

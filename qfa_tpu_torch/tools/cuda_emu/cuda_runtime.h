@@ -86,6 +86,7 @@ inline float __fadd_rn(float x, float y) { return x + y; }
 inline float __fsub_rn(float x, float y) { return x - y; }
 inline float __fmul_rn(float x, float y) { return x * y; }
 inline float __fdiv_rn(float x, float y) { return x / y; }
+inline float __fmaf_rn(float x, float y, float z) { return std::fma(x, y, z); }
 inline float __fsqrt_rn(float x) { return std::sqrt(x); }
 inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); return u; }
 inline float __uint_as_float(unsigned u) { float x; std::memcpy(&x, &u, 4); return x; }

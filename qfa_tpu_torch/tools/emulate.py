@@ -3,11 +3,13 @@
     from qfa_tpu_torch.tools import emulate
     lib = emulate.load(emulate.build(out_dir, nhs=(3, 8)))
     lib = emulate.load(emulate.build(out_dir, nhs=(3, 8), source="predict.cu"))
+    lib = emulate.load(emulate.build(out_dir, nhs=(3, 8),
+                                     source=("predict.cu", "predict_tc.cu")))
     lib = emulate.load(emulate.build(out_dir, nhs=(3, 8), source="step.cu"))
     lib = emulate.load(emulate.build(out_dir, source="kdepth.cu"))
 
-:func:`build` compiles ``csrc/epoch.cu``, ``csrc/predict.cu``,
-``csrc/step.cu`` or ``csrc/kdepth.cu`` itself with g++ against the
+:func:`build` compiles ``csrc/epoch.cu``, ``csrc/predict.cu`` (with
+``csrc/predict_tc.cu``), ``csrc/step.cu`` or ``csrc/kdepth.cu`` itself with g++ against the
 stand-in headers in ``tools/cuda_emu`` (one std::thread per CUDA thread,
 the blocks of a launch one after another, ``__syncthreads`` a barrier, an
 asynchronous copy landing when its thread waits for it, the warp's
@@ -35,32 +37,37 @@ HEADERS = Path(__file__).resolve().parent / "cuda_emu"
 
 
 def build(out_dir, nhs=None, source="epoch.cu") -> Path:
-    """Compile ``csrc/<source>`` for the CPU into ``out_dir``; with
-    ``nhs``, instantiate only those nh (faster to build). Returns the
-    library's path; raises with g++'s output if it fails."""
+    """Compile ``csrc/<source>`` (or each of a tuple of sources, into one
+    library) for the CPU into ``out_dir``; with ``nhs``, instantiate only
+    those nh (faster to build). Returns the library's path; raises with
+    g++'s output if it fails."""
     from ..ops import _build
 
+    sources = (source,) if isinstance(source, str) else tuple(source)
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError(f"g++ not found: the CPU build of {source} needs it")
-    src = (_build.CSRC / source).read_text()
-    if nhs is not None:
-        keep = {str(n) for n in nhs}
-        src = re.sub(r"    case (\d+): return \w+<\1\b",
-                     lambda m: m[0] if m[1] in keep else
-                     f"    case {m[1]}: return cudaErrorInvalidValue; //",
-                     src)
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    stem = Path(source).stem
-    cpp = out / f"{stem}_emu.cpp"
-    cpp.write_text(src)
+    cpps = []
+    for name in sources:
+        src = (_build.CSRC / name).read_text()
+        if nhs is not None:
+            keep = {str(n) for n in nhs}
+            src = re.sub(r"    case (\d+): return \w+<\1\b",
+                         lambda m: m[0] if m[1] in keep else
+                         f"    case {m[1]}: return cudaErrorInvalidValue; //",
+                         src)
+        cpp = out / f"{Path(name).stem}_emu.cpp"
+        cpp.write_text(src)
+        cpps.append(str(cpp))
+    stem = "_".join(Path(name).stem for name in sources)
     lib = out / f"lib{stem}_emu.so"
     res = subprocess.run(
         [gxx, "-std=c++20", "-O1", "-fno-strict-aliasing", "-shared",
          "-fPIC", "-pthread",
          "-Wno-unknown-pragmas", f"-I{HEADERS}", f"-I{_build.CSRC}",
-         "-x", "c++", str(cpp), "-o", str(lib)],
+         "-x", "c++", *cpps, "-o", str(lib)],
         capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"g++ failed:\n{res.stdout}{res.stderr}")

@@ -301,3 +301,61 @@ def test_fused_predict_rejects_zq_column_without_flag():
             torch.from_numpy(d["flux"]), torch.from_numpy(d["error"]),
             torch.from_numpy(d["zq"][:, :2].copy()), None,
         )
+
+
+class _Captured(Exception):
+    pass
+
+
+@pytest.mark.parametrize("nh", [1, 3, 8, 10])
+def test_gram_table_is_jax_rhst(nh, monkeypatch):
+    """The table of the port's tensor-core body (``gram_table``: the lower
+    Gram triangle's columns ``F_a * F_b``, then F) equals the rows JAX's
+    fused_predict builds once outside its kernel (``rhst``, its last
+    operand, taken from its ``pl.pallas_call``) bitwise; its TF32 split
+    holds TF32 values (the 13 low bits clear) and hi + lo recombines to
+    it within the rounding of lo, 2^-22 of each entry; and the copy the
+    kernel reads (``_tc_table``) holds those hi and lo, bitwise, in the
+    MMA fragments' order."""
+    from jax.experimental import pallas as pl
+
+    from qfa_tpu_torch.ops.infer_kernel import _tc_table, gram_table, split_tf32
+
+    got = {}
+
+    def capture(kernel, **kw):
+        def call(*args):
+            got["rhst"] = np.asarray(args[-1])
+            raise _Captured
+
+        return call
+
+    monkeypatch.setattr(pl, "pallas_call", capture)
+    with jax.disable_jit(), pytest.raises(_Captured):
+        jax_run(nh, "plane", "plane")
+    grid, np_params, _, _ = make_problem(nh)
+    ntri = nh * (nh + 1) // 2
+    table = gram_table(torch.from_numpy(np_params["F"].copy()))
+    assert table.shape == (grid.npix, ntri + nh)
+    want = torch.from_numpy(got["rhst"][:ntri + nh, :grid.npix].T.copy())
+    assert torch.equal(table, want)
+    hi, lo = split_tf32(table)
+    for part in (hi, lo):
+        assert not bool((part.view(torch.int32) & 0x1FFF).any())
+    err = (hi.double() + lo.double() - table.double()).abs()
+    assert bool((err <= 2.0**-22 * table.double().abs()).all())
+    assert float((hi - table).abs().max()) > 0  # the split is not trivial
+    # the tensor-core body's copy: these hi and lo, the Gram columns and
+    # F's each padded to a multiple of 8, in fragment order (entry (k, n,
+    # t) = hi, hi, lo, lo of pixels 8 k + t and 8 k + t + 4)
+    ng, nf = -(-ntri // 8) * 8, -(-nh // 8) * 8
+    pad = 128
+    p = -(-grid.npix // pad) * pad
+    padded = torch.zeros((2, p, ng + nf))
+    padded[0, :grid.npix, :ntri], padded[0, :grid.npix, ng:ng + nh] = \
+        hi[:, :ntri], hi[:, ntri:]
+    padded[1, :grid.npix, :ntri], padded[1, :grid.npix, ng:ng + nh] = \
+        lo[:, :ntri], lo[:, ntri:]
+    frag = padded.view(2, p // 8, 2, 4, ng + nf).permute(1, 4, 3, 0, 2)
+    got = _tc_table(torch.from_numpy(np_params["F"].copy()), pad)
+    assert torch.equal(got, frag.reshape(-1))

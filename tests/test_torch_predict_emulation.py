@@ -1,5 +1,5 @@
-"""The CUDA prediction kernel's own source (``csrc/predict.cu``), compiled
-for the CPU by g++ (``qfa_tpu_torch.tools.emulate``: one thread per CUDA
+"""The CUDA prediction kernels' own sources (``csrc/predict.cu`` and
+``csrc/predict_tc.cu``), compiled for the CPU by g++ (``qfa_tpu_torch.tools.emulate``: one thread per CUDA
 thread, asynchronous copies that land only when waited for, shared memory
 filled with NaN before each block), run through the CUDA wrapper
 ``_launch`` on CPU tensors and held against ``fused_predict_plain``, which
@@ -28,7 +28,20 @@ addresses aligned to its size, as the card does). Each case is held
 against the plain version on the same planes (TOL), bitwise against the
 float32 kernel on the planes upcast (exact), and bitwise row by row; with
 bf16 output the planes are the float32 call's cast, the stats unchanged.
+
+bfloat16 flux and error go to ``csrc/predict_tc.cu`` (tiles of 64 spectra,
+the products as mma.sync TF32 tensor-core products, which the emulator
+computes from the PTX fragment layout), float32 ones (a mixed pair is read
+as float32) to ``csrc/predict.cu``. The exact witness of a call is the
+same body on the planes upcast: ``predict_tc.cu``'s float32 instantiation
+(never routed from ``fused_predict``) when flux and error are bfloat16.
+The tc body is held at nh 3, 8 and 10 (the Gram triangle and F padded to
+40 + 8 = 48 columns at nh 8, 56 + 16 = 72 at nh 10), at 150 spectra (three
+tiles, the last a part tile, two of them walked by one emulated block),
+and with fully masked rows; each launch is counted per body.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -42,6 +55,7 @@ from qfa_tpu_torch.tools import emulate
 
 NHS = (1, 3, 8, 10)
 TILE = 8  # spectra per block tile, one per warp (kWarps in csrc/predict.cu)
+TC_TILE = 64  # spectra per block tile of csrc/predict_tc.cu (kM)
 NPIX, NB = 601, 300
 MASKED = (3, 9)  # fully masked rows
 TOL = {
@@ -60,18 +74,26 @@ BF16_CASES = {"float32": (), "bf16 flux/error": ("flux", "error"),
               "bf16 planes": ("flux", "error", "mask", "zabs")}
 
 
+#: the bf16 cases whose flux and error are both bfloat16: the tc body's
+TC_CASES = [k for k, v in BF16_CASES.items() if {"flux", "error"} <= set(v)]
+COUNTS = ("LAUNCHES", "BF16_LAUNCHES", "TC_LAUNCHES", "WARP_LAUNCHES")
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     src = (_build.CSRC / "predict.cu").read_text()
     assert f"constexpr int kWarps = {TILE};" in src
+    tc = (_build.CSRC / "predict_tc.cu").read_text()
+    assert f"constexpr int kM = {TC_TILE};" in tc
     lib = emulate.load(emulate.build(tmp_path_factory.mktemp("emu"), NHS,
-                                     source="predict.cu"))
-    before = infer_kernel.LAUNCHES, infer_kernel.BF16_LAUNCHES
+                                     source=("predict.cu", "predict_tc.cu")))
+    before = {k: getattr(infer_kernel, k) for k in COUNTS}
     with emulate.installed(lib):
         yield lib
     # these calls went through the CUDA wrapper on CPU tensors; other
     # files check that CPU calls never count
-    infer_kernel.LAUNCHES, infer_kernel.BF16_LAUNCHES = before
+    for k, v in before.items():
+        setattr(infer_kernel, k, v)
 
 
 def problem(nh, n, seed, npix=NPIX, nb=NB):
@@ -116,15 +138,35 @@ def call(fn, params, mu, data, mode, stats_only=False, rows=slice(None),
 
 
 def kernel(params, mu, flux, error, zabs, mask, *, stats_only=False,
-           loglam=None, derive_zabs=False, out_dtype=torch.float32):
+           loglam=None, derive_zabs=False, out_dtype=torch.float32,
+           body=None):
     """``fused_predict``'s CUDA branch, on whatever device the tensors
-    are on."""
+    are on; ``body`` as ``infer_kernel._fused_predict_body`` takes it."""
     infer_kernel._check_args(params, flux, error, zabs, mask, loglam,
                              derive_zabs)
     return infer_kernel._launch(
         params, mu, flux.contiguous(), error.contiguous(), zabs, mask,
         law=tau_law_abc("becker"), stats_only=stats_only, loglam=loglam,
-        derive_zabs=derive_zabs, out_dtype=out_dtype)
+        derive_zabs=derive_zabs, out_dtype=out_dtype, body=body)
+
+
+def tc_body(planes):
+    return planes["flux"].dtype is torch.bfloat16 and \
+        planes["error"].dtype is torch.bfloat16
+
+
+def witness(params, mu, planes, mode, stats_only=False):
+    """The exact witness of a kernel call on ``planes``: the same body on
+    the planes upcast (exact): predict_tc.cu's float32 instantiation when
+    flux and error are bfloat16, else predict.cu."""
+    upcast = {k: v.float() for k, v in planes.items()}
+    body = "tc" if tc_body(planes) else "warp"
+    return call(functools.partial(kernel, body=body), params, mu, upcast,
+                mode, stats_only)
+
+
+def counts():
+    return {k: getattr(infer_kernel, k) for k in COUNTS}
 
 
 def assert_close(got, want, stats_only):
@@ -227,21 +269,24 @@ def test_emulated_rows_are_independent(emulated, mode):
 def test_emulated_kernel_plane_and_out_dtypes(emulated, case, mode):
     """27 spectra with the case's planes stored as bfloat16, full output
     and stats_only: (a) within TOL of the plain version on the same
-    planes; (b) bitwise the float32 kernel on the planes upcast; (c) rows
-    alone, and the planes moved one element in memory, bitwise the
-    batch. With out_dtype=bfloat16 the planes are the float32 call's
-    cast, and the stats are float32 and bitwise unchanged."""
+    planes; (b) bitwise the same body's float32 kernel on the planes
+    upcast (predict_tc.cu's float32 instantiation for bf16 flux/error,
+    predict.cu otherwise); (c) rows alone, and the planes moved one
+    element in memory, bitwise the batch. With out_dtype=bfloat16 the
+    planes are the float32 call's cast, and the stats are float32 and
+    bitwise unchanged. Every call on the case's planes runs the body its
+    flux/error type picks."""
     bf = torch.bfloat16
     params, mu, data = problem(8, 27, 21)
     planes = {k: v.to(bf) if k in BF16_CASES[case] else v
               for k, v in data.items()}
     bf16_launches = infer_kernel.BF16_LAUNCHES
-    upcast = {k: v.float() for k, v in planes.items()}
+    before = counts()
     for stats_only in (False, True):
         got = call(kernel, params, mu, planes, mode, stats_only)
         assert_close(got, call(fused_predict_plain, params, mu, planes, mode,
                                stats_only), stats_only)
-        assert_equal(got, call(kernel, params, mu, upcast, mode, stats_only))
+        assert_equal(got, witness(params, mu, planes, mode, stats_only))
     batch = call(kernel, params, mu, planes, mode)
     for rows in (slice(0, 1), slice(5, 6), slice(13, 18)):
         assert_equal(call(kernel, params, mu, planes, mode, rows=rows), batch,
@@ -260,3 +305,123 @@ def test_emulated_kernel_plane_and_out_dtypes(emulated, case, mode):
     own |= {"zabs"} if "zabs plane" in mode else set()
     read_bf16 = {"flux", "error"} <= case or bool(own & case)
     assert infer_kernel.BF16_LAUNCHES == bf16_launches + 7 * read_bf16 + 1
+    # 8 calls on the case's planes and 2 witnesses, each of the body the
+    # flux/error type picks
+    body = "TC_LAUNCHES" if {"flux", "error"} <= case else "WARP_LAUNCHES"
+    after = counts()
+    assert after["LAUNCHES"] - before["LAUNCHES"] == 10
+    assert after[body] - before[body] == 10
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", TC_CASES)
+def test_emulated_tc_body_matches_plain(emulated, case, mode):
+    """The tc body at nh 3 (nh 8: the test above), 27 spectra, every mode,
+    full output and stats_only: within TOL of the plain version on the
+    same planes, bitwise its float32 instantiation on the planes upcast;
+    rows alone and the planes moved in memory bitwise the batch; bf16
+    output the float32 call's cast. Each call one tc launch."""
+    bf = torch.bfloat16
+    params, mu, data = problem(3, 27, 31)
+    planes = {k: v.to(bf) if k in BF16_CASES[case] else v
+              for k, v in data.items()}
+    before = counts()
+    for stats_only in (False, True):
+        got = call(kernel, params, mu, planes, mode, stats_only)
+        assert_close(got, call(fused_predict_plain, params, mu, planes, mode,
+                               stats_only), stats_only)
+        assert_equal(got, witness(params, mu, planes, mode, stats_only))
+    batch = call(kernel, params, mu, planes, mode)
+    assert_equal(call(kernel, params, mu, planes, mode, rows=slice(5, 9)),
+                 batch, slice(5, 9))
+    assert_equal(call(kernel, params, mu, moved(planes), mode), batch)
+    out = call(kernel, params, mu, planes, mode, out_dtype=bf)
+    for name in TOL:
+        a, b = getattr(out, name), getattr(batch, name)
+        want = b.to(bf) if name.startswith("continuum") else b
+        assert a.dtype == want.dtype and torch.equal(a, want), name
+    after = counts()
+    assert after["TC_LAUNCHES"] - before["TC_LAUNCHES"] == 8
+    assert after["WARP_LAUNCHES"] == before["WARP_LAUNCHES"]
+
+
+@pytest.mark.parametrize("nh", [1, 10])
+def test_emulated_tc_body_nh_edges(emulated, nh):
+    """nh 1 (8 + 8 table columns) and nh 10 (56 + 16 = 72): within TOL of
+    the plain version, bitwise the float32 instantiation."""
+    bf = torch.bfloat16
+    params, mu, data = problem(nh, 11, 200 + nh)
+    planes = {k: v.to(bf) if k in ("flux", "error") else v
+              for k, v in data.items()}
+    got = call(kernel, params, mu, planes, MODES[0])
+    assert got.hcov.shape == (11, nh, nh)
+    assert_close(got, call(fused_predict_plain, params, mu, planes, MODES[0]),
+                 False)
+    assert_equal(got, witness(params, mu, planes, MODES[0]))
+
+
+@pytest.mark.parametrize("mode", [MODES[0], MODES[3]])
+def test_emulated_tc_body_ragged_tiles(emulated, mode):
+    """150 spectra: tiles of 64, 64 and 22 rows, the first and the last
+    walked by one emulated block, so its ring runs on from one tile into
+    the next. Within TOL of the plain version; rows across a tile's edge,
+    and a row of the part tile, alone bitwise the batch."""
+    bf = torch.bfloat16
+    n = 150
+    assert n % TC_TILE and n > 2 * TC_TILE
+    params, mu, data = problem(8, n, 41)
+    planes = {k: v.to(bf) if k in ("flux", "error") else v
+              for k, v in data.items()}
+    batch = call(kernel, params, mu, planes, mode)
+    assert_close(batch, call(fused_predict_plain, params, mu, planes, mode),
+                 False)
+    for rows in (slice(60, 70), slice(149, 150)):
+        assert_equal(call(kernel, params, mu, planes, mode, rows=rows),
+                     batch, rows)
+
+
+def test_emulated_tc_body_fully_masked_rows_are_prior(emulated):
+    """A fully masked row: ll = 0, n_obs = 0, hmean = 0, hcov = I, the
+    continuum mu, std the prior's sqrt(diag(F F^T))."""
+    params, mu, data = problem(8, 11, 3)
+    planes = {k: v.to(torch.bfloat16) if k in ("flux", "error") else v
+              for k, v in data.items()}
+    out = call(kernel, params, mu, planes, MODES[3])
+    f = params.F
+    for r in MASKED:
+        assert float(out.ll[r]) == 0.0 and float(out.n_obs[r]) == 0.0
+        assert torch.equal(out.hmean[r], torch.zeros(8))
+        assert torch.equal(out.hcov[r], torch.eye(8))
+        assert torch.equal(out.continuum[r], mu)
+        torch.testing.assert_close(out.continuum_std[r],
+                                   torch.sqrt((f * f).sum(dim=1)))
+
+
+def test_emulated_bodies_by_plane_type(emulated):
+    """fused_predict's routing: bfloat16 flux and error run the tc body,
+    float32 and mixed pairs (read as float32: no bfloat16 plane)
+    predict.cu, bitwise the warp body called by
+    name (predict.cu, as it was); the float32 instantiation of the tc body
+    is reached only by name and reads no bfloat16 plane. One count per
+    launch, in LAUNCHES and in its body's."""
+    params, mu, data = problem(3, 11, 51)
+    bf = torch.bfloat16
+    cases = (({}, "WARP_LAUNCHES", None), ({}, "TC_LAUNCHES", "tc"),
+             ({"flux"}, "WARP_LAUNCHES", None),
+             ({"flux", "error"}, "TC_LAUNCHES", None),
+             ({"flux", "error"}, "WARP_LAUNCHES", "warp"))
+    for which, body, name in cases:
+        planes = {k: v.to(bf) if k in which else v for k, v in data.items()}
+        before = counts()
+        got = call(functools.partial(kernel, body=name), params, mu, planes,
+                   MODES[0])
+        after = counts()
+        assert {k: after[k] - before[k] for k in COUNTS} == {
+            "LAUNCHES": 1, "BF16_LAUNCHES": int(len(which) == 2),
+            "TC_LAUNCHES": int(body == "TC_LAUNCHES"),
+            "WARP_LAUNCHES": int(body == "WARP_LAUNCHES")}, (which, name)
+        if body == "WARP_LAUNCHES" and name is None:
+            assert_equal(got, witness(params, mu, planes, MODES[0]))
+    with pytest.raises(ValueError, match="no prediction body"):
+        call(functools.partial(kernel, body="simt"), params, mu, data,
+             MODES[0])

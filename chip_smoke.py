@@ -192,7 +192,18 @@ made from a seed:
     phase writes): exit code 0, every printed loss finite; each script's
     ``main`` called in process at smaller sizes with its kernels'
     launches counted; both ``nb_torch`` notebooks cell by cell with
-    ``DEVICE=cuda``.
+    ``DEVICE=cuda``;
+22. ``bench.py``'s drift gate of bf16 operands (``bench.py:796-834``) on
+    the epoch kernel: 65,536 SDSS spectra drawn from ``random_init``
+    parameters (``bench.py:98-126``), 55 epochs at batch 4096, tile 256,
+    from those parameters with a fresh Adam state and no smoothing, with
+    bf16 operands and with float32 ones on the same tile permutations:
+    the epoch-55 losses must agree to 1e-5 relative (JAX's gate,
+    unchanged). Readings, no limit: the drift at every epoch, the float32
+    arm on other permutations (the shuffle's own noise), the CLI's regime
+    (``fit_fused`` at batch 500 from a distant init, smoothing every 5
+    epochs), the parameters' distance after epoch 55, ms per epoch per
+    arm; every run's epoch-kernel calls counted exactly.
 
 Prints a JSON line of kernel results, then, as its last line,
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
@@ -347,6 +358,17 @@ PARAM_NAMES = ("F", "Psi", "omega", "tau0", "c0", "beta")
 EPOCH_STAGES = ("forward_kernel", "backward_kernel", "update_kernel")
 #: phase 9's traces of one epoch at most, until one holds every launch
 PROFILE_TRIES = 3
+#: phase 22, bench.py's gate of bf16 operands (bench.py:796-834): its
+#: problem (65,536 SDSS spectra, bench.py:728), batch and tile, 55 epochs
+#: (a warm-up chunk of 5 and 5 rounds of 2 chunks of 5), and its limit on
+#: the epoch-55 loss drift |L_bf16 - L_f32| / max(|L_f32|, 1e-9)
+#: (bench.py:827-832; ~5e-7 expected, qfa_tpu/ops/epoch_kernel.py:631-633)
+DRIFT_N, DRIFT_BATCH, DRIFT_TILE, DRIFT_EPOCHS = 65536, 4096, 256, 55
+DRIFT_LIMIT = 1e-5
+#: ... and the CLI's regime beside it, reported only: fit_fused at the
+#: CLI's batch, from a random_init other than the data's, smoothing every
+#: 5 epochs as --type train does
+DRIFT_CLI_BATCH = 500
 NPZ_KEYS = {"ll": "ll", "hmean": "hmean", "hcov": "hcov",
             "continuum": "cont", "continuum_std": "uncertainty"}
 
@@ -4044,6 +4066,251 @@ def phase_examples(root):
     return lines
 
 
+def drift_problem(grid, n, seed, device, nh=NH):
+    """bench.py's make_problem (bench.py:98-126) with the port's own
+    generator: ``random_init`` parameters and mu = 1, n spectra from
+    ``synthetic.generate(mask_frac=0.1)``, in the derived layout (the mask
+    taken from error > 0, a zq column, loglam). Returns (params, mu, data,
+    loglam) on the device."""
+    from qfa_tpu_torch.data.loader import ResidualDataset
+    from qfa_tpu_torch.data.synthetic import generate
+    from qfa_tpu_torch.models.params import random_init
+    from qfa_tpu_torch.ops.common import loglam_row, zq_column
+
+    params = random_init(grid.npix, grid.nb, nh,
+                         generator=torch.Generator().manual_seed(seed)
+                         ).to(device)
+    mu = torch.ones(grid.npix, device=device)
+    syn = generate(params, mu, grid, n, mask_frac=0.1,
+                   generator=torch.Generator(device).manual_seed(seed + 1))
+    full = syn.to_batch(mu)
+    data = ResidualDataset(delta=full.delta, error=full.error,
+                           zabs=zq_column(syn.zqso), mask=None)
+    return params, mu, data, loglam_row(grid.wav, device=device)
+
+
+def drift_perms(n_tiles, epochs, perm_seed):
+    """The tile permutation of every epoch, from one seeded generator."""
+    g = torch.Generator().manual_seed(perm_seed)
+    return [torch.randperm(n_tiles, generator=g) for _ in range(epochs)]
+
+
+def epoch_loss(out, n, batch):
+    """fit_fused's epoch loss: the batches' mean losses summed over
+    floor(n / batch)."""
+    means = out.loss_sums / out.n_real.clamp(min=1.0)
+    return means.sum() / max(n // batch, 1)
+
+
+def drift_arm(problem, perms, batch, tile, mxu_bf16, engine=None):
+    """One arm of bench.py's gate: one ``fused_train_epoch`` call per
+    permutation with the epoch counter advanced, from the problem's
+    parameters and ``adam.init``, the default TrainConfig, nothing in
+    between the epochs. ``engine`` stands in for ``fused_train_epoch``.
+    Returns the per-epoch losses, the final params, m and v, and the ms
+    of the first epoch and the median ms per epoch (CUDA events between
+    the epochs on the card, else the host clock)."""
+    from qfa_tpu_torch.ops.epoch_kernel import fused_train_epoch
+    from qfa_tpu_torch.train import TrainConfig, adam
+
+    params, _, data, loglam = problem
+    n = data.size
+    check(n % batch == 0 and batch % tile == 0,
+          f"{n} spectra, batch {batch}, tile {tile}: not whole batches")
+    engine = engine or fused_train_epoch
+    cfg = TrainConfig(batch_size=batch)
+    kw = dict(n_batches=n // batch, loglam=loglam, derive_zabs=True,
+              tile_batch=tile, learning_rate=cfg.learning_rate,
+              weight_decay=cfg.weight_decay, decay_alpha=cfg.decay_alpha,
+              decay_step=cfg.decay_step, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+              bounds=cfg.bounds, tau_which=cfg.options.tau_which,
+              reference_norm=cfg.reference_norm, mxu_bf16=mxu_bf16)
+    st = adam.init(params)
+    p, m, v = params, st.m, st.v
+    cuda = data.delta.device.type == "cuda"
+    stamps = []
+
+    def stamp():
+        if cuda:
+            stamps.append(torch.cuda.Event(enable_timing=True))
+            stamps[-1].record()
+        else:
+            stamps.append(time.perf_counter())
+
+    losses = []
+    stamp()
+    for e, perm in enumerate(perms):
+        out = engine(p, m, v, data.delta, data.error, data.zabs, perm, None,
+                     epoch=e, **kw)
+        p, m, v = out.params, out.m, out.v
+        losses.append(epoch_loss(out, n, batch))
+        stamp()
+    if cuda:
+        stamps[-1].synchronize()
+        ms = [a.elapsed_time(b) for a, b in zip(stamps, stamps[1:])]
+    else:
+        ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    return dict(losses=torch.stack(losses).tolist(), params=p, m=m, v=v,
+                first_ms=ms[0], ms=statistics.median(ms))
+
+
+def rel_drift(a, b):
+    """bench.py's drift of a loss a from b: |a - b| / max(|b|, 1e-9)."""
+    return abs(a - b) / max(abs(b), 1e-9)
+
+
+def bf16_drift(device, n=DRIFT_N, batch=DRIFT_BATCH, tile=DRIFT_TILE,
+               epochs=DRIFT_EPOCHS, seed=SEED, perm_seed=SEED + 1, grid=None,
+               engine=None, problem=None):
+    """bench.py's mxu_bf16 drift protocol (bench.py:796-834) on the port:
+    the problem of :func:`drift_problem` (or ``problem``), both arms
+    (bf16 operands and float32 ones, float32 planes) from its generating
+    parameters over ``epochs`` epochs on the same permutations. Returns
+    the problem, the permutations, each arm (:func:`drift_arm`) and the
+    drift of every epoch's loss."""
+    from qfa_tpu_torch.data.grid import make_grid
+
+    if problem is None:
+        problem = drift_problem(grid or make_grid(**SDSS), n, seed, device)
+    perms = drift_perms(problem[2].size // tile, epochs, perm_seed)
+    bf16 = drift_arm(problem, perms, batch, tile, True, engine)
+    f32 = drift_arm(problem, perms, batch, tile, False, engine)
+    drift = [rel_drift(a, b) for a, b in zip(bf16["losses"], f32["losses"])]
+    return dict(problem=problem, perms=perms, bf16=bf16, f32=f32,
+                drift=drift)
+
+
+@contextlib.contextmanager
+def counting_plain():
+    """Counts the calls of the epoch kernel's plain version, through the
+    wrapper and through fit_fused, while the block runs."""
+    from qfa_tpu_torch.ops import epoch_kernel
+    from qfa_tpu_torch.train import fused_engine
+
+    calls = [0]
+    plain = epoch_kernel.fused_train_epoch_plain
+
+    def spy(*args, **kw):
+        calls[0] += 1
+        return plain(*args, **kw)
+
+    epoch_kernel.fused_train_epoch_plain = spy
+    fused_engine.fused_train_epoch_plain = spy
+    try:
+        yield calls
+    finally:
+        epoch_kernel.fused_train_epoch_plain = plain
+        fused_engine.fused_train_epoch_plain = plain
+
+
+def trajectory(drift):
+    """max, the epoch of the max (1-based) and median of a drift list."""
+    top = max(range(len(drift)), key=drift.__getitem__)
+    return (f"max {drift[top]:.3e} at epoch {top + 1}, median "
+            f"{statistics.median(drift):.3e}")
+
+
+def phase_drift(device, smi, n=DRIFT_N, batch=DRIFT_BATCH, tile=DRIFT_TILE,
+                epochs=DRIFT_EPOCHS, cli_batch=DRIFT_CLI_BATCH):
+    """Phase 22: bench.py's drift gate on the epoch kernel, with its
+    readings printed before the gate is held. Returns the epoch-kernel
+    calls of its runs."""
+    from qfa_tpu_torch.data.grid import make_grid
+    from qfa_tpu_torch.models.params import random_init
+    from qfa_tpu_torch.ops import epoch_kernel
+    from qfa_tpu_torch.train import TrainConfig, fit_fused
+
+    grid = make_grid(**SDSS)
+    total = 0
+
+    def counted(expected, what, run):
+        """run() with exactly ``expected`` epoch-kernel calls and nothing
+        else launched or run plain."""
+        nonlocal total
+        zero_counts()
+        with counting_plain() as plain:
+            out = run()
+        torch.cuda.synchronize()
+        got = epoch_kernel.LAUNCHES
+        check(got == expected and plain[0] == 0
+              and epoch_kernel.WINDOW_LAUNCHES == 0
+              and other_counts(epoch_kernel) == 0,
+              f"{what}: {got} epoch-kernel calls (expected {expected}), "
+              f"{plain[0]} plain-version calls, "
+              f"{epoch_kernel.WINDOW_LAUNCHES} window calls, "
+              f"{other_counts(epoch_kernel)} other kernels' launches")
+        total += got
+        return out
+
+    problem = drift_problem(grid, n, SEED, device)
+    r = counted(2 * epochs, "the gate's two arms",
+                lambda: bf16_drift(device, n, batch, tile, epochs,
+                                   problem=problem))
+    drift, lb, lf = r["drift"], r["bf16"]["losses"], r["f32"]["losses"]
+    say(f"  bench.py's protocol: {n} SDSS spectra (nh {NH}, mu 1, "
+        f"mask_frac 0.1, derived layout) from the generating params, batch "
+        f"{batch}, tile {tile}, {epochs} epochs, no smoothing, the same "
+        f"permutations: epoch-{epochs} loss bf16 {lb[-1]!r}, float32 "
+        f"{lf[-1]!r}, drift {drift[-1]:.3e} (limit {DRIFT_LIMIT:g}); over "
+        f"the epochs {trajectory(drift)}")
+    say("  drift per epoch: " + " ".join(f"{d:.2e}" for d in drift))
+    say("  loss per epoch, float32 arm: " + " ".join(f"{x:.6f}" for x in lf))
+    dist = {k: norm_rel(getattr(r["bf16"]["params"], k).detach(),
+                        getattr(r["f32"]["params"], k).detach())
+            for k in PARAM_NAMES}
+    say(f"  params after epoch {epochs}, bf16 arm against float32, "
+        "norm-wise relative: " + ", ".join(f"{k} {d:.3e}"
+                                            for k, d in dist.items()))
+    say(f"  ms per epoch ({smi}, CUDA events between the epochs, median "
+        f"of {epochs}; the first epoch in brackets): bf16 operands "
+        f"{r['bf16']['ms']!r} ({r['bf16']['first_ms']!r}), float32 "
+        f"{r['f32']['ms']!r} ({r['f32']['first_ms']!r})")
+    # the control: the float32 arm on other permutations
+    ctl = counted(epochs, "the control", lambda: drift_arm(
+        problem, drift_perms(n // tile, epochs, SEED + 2), batch, tile,
+        False))
+    cdrift = [rel_drift(a, b) for a, b in zip(ctl["losses"], lf)]
+    say(f"  control, float32 on other permutations against float32: epoch "
+        f"{epochs} {cdrift[-1]:.3e}; {trajectory(cdrift)}")
+    # the CLI's regime: fit_fused at its batch from another random_init,
+    # smoothing every 5 epochs, one call per epoch (TRAIN.EPOCHS_PER_LAUNCH)
+    _, mu, data, loglam = problem
+    init = random_init(grid.npix, grid.nb, NH,
+                       generator=torch.Generator().manual_seed(SEED + 3)
+                       ).to(device)
+    hist, wall = {}, {}
+    for mxu in (True, False):
+        cfg = TrainConfig(n_epochs=epochs, batch_size=cli_batch,
+                          mxu_bf16=mxu)
+        t0 = time.perf_counter()
+        hist[mxu] = counted(epochs, f"fit_fused, mxu_bf16={mxu}",
+                            lambda: fit_fused(init, data, mu, cfg, seed=SEED,
+                                              derive_mask=True,
+                                              loglam=loglam)[1])
+        wall[mxu] = time.perf_counter() - t0
+        check(len(hist[mxu]) == epochs
+              and all(np.isfinite(x) for x in hist[mxu]),
+              f"fit_fused, mxu_bf16={mxu}: {len(hist[mxu])} epochs, or a "
+              "loss not finite")
+    cli = [rel_drift(a, b) for a, b in zip(hist[True], hist[False])]
+    say(f"  the CLI's regime, fit_fused at batch {cli_batch} from another "
+        f"random_init, smoothing every 5 epochs: float32 loss "
+        f"{hist[False][0]:.4f} -> {hist[False][-1]:.4f}; drift epoch "
+        f"{epochs} {cli[-1]:.3e}; {trajectory(cli)}; wall "
+        f"{wall[True]:.3f} s (bf16) / {wall[False]:.3f} s (float32), host "
+        "clock")
+    say("  drift per epoch, the CLI's regime: "
+        + " ".join(f"{d:.2e}" for d in cli))
+    say(f"  epoch-kernel calls: {total} (2 x {epochs} the gate, {epochs} "
+        f"the control, 2 x {epochs} fit_fused), none of the plain version, "
+        "no other kernel")
+    check(drift[-1] <= DRIFT_LIMIT,
+          f"bf16 loss drift {drift[-1]:.3e} at epoch {epochs} exceeds "
+          f"bench.py's {DRIFT_LIMIT:g} gate (float32 {lf[-1]!r}, bf16 "
+          f"{lb[-1]!r}); {trajectory(drift)}")
+    return total
+
+
 def turns(runs, reps):
     """Median ms per call of each of ``runs`` by CUDA events (after one
     warm-up call each), timed in turns: in order, then in reverse."""
@@ -4125,9 +4392,9 @@ def bounds(grid, n_epoch, n_batches, tile, batch):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="",
-                    help="comma-separated phases (3-21) to run after "
-                    "phases 1-2 (e.g. 10,11,12 or 20,21); a partial run "
-                    "prints no kernels line and no ok line")
+                    help="comma-separated phases (3-22) to run after "
+                    "phases 1-2 (e.g. 10,11,12 or 20,21 or 22); a partial "
+                    "run prints no kernels line and no ok line")
     ap.add_argument("--rank-worker", default="", help=argparse.SUPPRESS)
     ap.add_argument("--tp-worker", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -4518,6 +4785,13 @@ def main(argv=None):
             say(f"  {line}")
         say(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
 
+    if want(22):
+        t0 = time.perf_counter()
+        say(f"phase 22 bench.py's drift gate of bf16 operands on the epoch "
+            f"kernel ({smi}):")
+        drift_launches = phase_drift(device, smi)
+        say(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
+
     if only:
         say(f"partial run of phases 1, 2 and {sorted(only)}: no kernels "
             "line, no result")
@@ -4538,7 +4812,8 @@ def main(argv=None):
               "qfa_tpu/ops/infer_kernel.py:90", main_launches, worst,
               t_pred["kernel"], t_pred["plain"], t_pred["bound"][:2]),
         entry("epoch_kernel", "qfa_tpu_torch/csrc/epoch.cu",
-              "qfa_tpu/ops/epoch_kernel.py:237", train_launches, train_worst,
+              "qfa_tpu/ops/epoch_kernel.py:237",
+              train_launches + drift_launches, train_worst,
               ttimes["bf16 operands"]["kernel"],
               ttimes["bf16 operands"]["plain"], b_epoch),
         entry("step_kernel", "qfa_tpu_torch/csrc/step.cu",

@@ -64,6 +64,7 @@ import torch
 from ..linalg import smallchol
 from ..linalg.lowrank import LOG_2PI
 from ..models.params import ParamBounds, QFAParams
+from ..utils.profiling import span
 from .common import ZQ_WIDTH, tau_law_abc, tri_idx, tri_pairs
 
 Tensor = torch.Tensor
@@ -1015,11 +1016,13 @@ def fused_train_epoch(
     if delta.device.type != "cuda":
         raise ValueError(
             f"fused_train_epoch runs on cpu or cuda, not {delta.device}")
-    geo = _check_args(params, m, v, delta, error, zabs, tile_perm, mask,
-                      loglam, derive_zabs, n_batches, n_epochs, tile_batch,
-                      sync_grads, pending, apply_pending, tiles_per_batch)
-    kw.pop("loglam")
-    kw.pop("tile_batch")
-    law = tau_law_abc(kw.pop("tau_which"))
-    return _launch(params, m, v, delta, error, zabs, mask, loglam, geo,
-                   law=law, pending=pending, **kw)
+    with span("qfa.epoch_kernel.launch"):
+        geo = _check_args(params, m, v, delta, error, zabs, tile_perm, mask,
+                          loglam, derive_zabs, n_batches, n_epochs,
+                          tile_batch, sync_grads, pending, apply_pending,
+                          tiles_per_batch)
+        kw.pop("loglam")
+        kw.pop("tile_batch")
+        law = tau_law_abc(kw.pop("tau_which"))
+        return _launch(params, m, v, delta, error, zabs, mask, loglam, geo,
+                       law=law, pending=pending, **kw)

@@ -37,6 +37,7 @@ import torch
 from ..linalg import smallchol
 from ..linalg.lowrank import LOG_2PI
 from ..models.params import QFAParams
+from ..utils.profiling import span
 from .common import ZQ_WIDTH, tau_law_abc, tri_idx, tri_pairs
 
 Tensor = torch.Tensor
@@ -386,13 +387,12 @@ def _launch(params, mu, flux, error, zabs, mask, *, law, stats_only, loglam,
     loglam_p = ptr(loglam if derive_zabs else None)
     if body == "tc":
         table = _tc_table(params.F, lib.qfa_predict_tc_chunk())
-        rc = lib.qfa_predict_tc_f32(
-            *planes, ptr(mu), ptr(params.F), ptr(table), ptr(params.Psi),
-            ptr(params.omega), loglam_p, *tail)
+        fn, f_and_table = lib.qfa_predict_tc_f32, (ptr(params.F), ptr(table))
     else:
-        rc = lib.qfa_predict_f32(
-            *planes, ptr(mu), ptr(params.F), ptr(params.Psi),
-            ptr(params.omega), loglam_p, *tail)
+        fn, f_and_table = lib.qfa_predict_f32, (ptr(params.F),)
+    with span("qfa.fused_predict.launch"):
+        rc = fn(*planes, ptr(mu), *f_and_table, ptr(params.Psi),
+                ptr(params.omega), loglam_p, *tail)
     if rc != 0:
         raise RuntimeError(
             f"CUDA prediction kernel launch failed ({body} body): error {rc} "
@@ -458,16 +458,18 @@ def _fused_predict_body(body, params, mu, flux, error, zabs, mask=None, *,
     ``"warp"`` runs ``csrc/predict.cu`` (on bfloat16 planes too, to time
     it against the other); None chooses as :func:`fused_predict` does.
     CPU tensors run the plain version."""
-    _check_args(params, flux, error, zabs, mask, loglam, derive_zabs)
-    params, mu, flux, error, zabs, mask, loglam = _as_read(
-        params, mu, flux, error, zabs, mask, loglam, derive_zabs)
-    law = tau_law_abc(tau_which)
-    kw = dict(stats_only=stats_only, loglam=loglam, derive_zabs=derive_zabs,
-              out_dtype=out_dtype)
-    if flux.device.type == "cpu":
-        return fused_predict_plain(params, mu, flux, error, zabs, mask,
-                                   tau_which=tau_which, **kw)
-    if flux.device.type != "cuda":
-        raise ValueError(f"fused_predict runs on cpu or cuda, not {flux.device}")
-    return _launch(params, mu, flux, error, zabs, mask, law=law, body=body,
-                   **kw)
+    with span("qfa.fused_predict"):
+        _check_args(params, flux, error, zabs, mask, loglam, derive_zabs)
+        params, mu, flux, error, zabs, mask, loglam = _as_read(
+            params, mu, flux, error, zabs, mask, loglam, derive_zabs)
+        law = tau_law_abc(tau_which)
+        kw = dict(stats_only=stats_only, loglam=loglam,
+                  derive_zabs=derive_zabs, out_dtype=out_dtype)
+        if flux.device.type == "cpu":
+            return fused_predict_plain(params, mu, flux, error, zabs, mask,
+                                       tau_which=tau_which, **kw)
+        if flux.device.type != "cuda":
+            raise ValueError(
+                f"fused_predict runs on cpu or cuda, not {flux.device}")
+        return _launch(params, mu, flux, error, zabs, mask, law=law,
+                       body=body, **kw)

@@ -40,7 +40,7 @@ import torch
 from ..data.loader import ResidualDataset
 from ..models.params import QFAParams, smooth_params
 from ..ops.epoch_kernel import fused_train_epoch, fused_train_epoch_plain
-from ..utils.profiling import raise_if_nonfinite
+from ..utils.profiling import raise_if_nonfinite, span
 from . import adam
 from .loop import (
     TrainConfig,
@@ -153,165 +153,185 @@ def fit_fused(
     reshuffles its shard through its tile permutations).
     Returns (final params, per-epoch loss history of the epochs run here).
     """
-    if dp_exact and mesh is None:
-        raise ValueError("dp_exact=True requires a mesh")
-    if dp_exact and epochs_per_launch > 1:
-        raise ValueError(
-            "dp_exact is incompatible with epochs_per_launch > 1: exact-DP "
-            "windows are sub-epoch (use batches_per_launch to amortize "
-            "calls instead)")
-    if mesh is not None and reshuffle_interval:
-        raise ValueError(
-            "reshuffle_interval is not supported with a mesh (the shards "
-            "reshuffle locally via the per-rank tile permutation)")
-    ndev = 1 if mesh is None else mesh.size
-    writer = mesh is None or mesh.rank == 0  # logs, validates, writes
-    if shuffler is None:
-        shuffler = SeededShuffler(seed, 0 if mesh is None else mesh.rank)
-    state = initial_state if initial_state is not None \
-        else TrainState(params, adam.init(params))
-    start_epoch = int(state.opt_state.epoch)
-    b = config.batch_size
-    if b % ndev:
-        raise ValueError(f"batch size {b} not divisible by the "
-                         f"{ndev}-device mesh")
-    n_real = data.size  # before padding: the loss divisor
-    if derive_mask:
-        data = data._replace(mask=None)
-    b_shard = b // ndev  # real rows of a batch on each rank
-    if tile_batch is None:
-        tb, shard_rows = pick_tiling(b_shard)
-    else:
-        tb = max(1, min(int(tile_batch), b_shard))
-        shard_rows = -(-b_shard // tb) * tb
-    batch_rows = shard_rows * ndev  # rows each update spans, all ranks
-    n_batches = max(-(-n_real // b), 1)
-    data = _pad_rows(data, n_batches * batch_rows - data.size)
-    engine = fused_train_epoch_plain if plain else fused_train_epoch
-    if mesh is not None:
-        from ..parallel import (
-            make_epoch_dp_fn,
-            make_sync_dp_epoch_fn,
-            replicated,
-            shard_dataset,
-        )
-
-        data = shard_dataset(data, mesh)
-        if loglam is not None:
-            loglam = loglam.to(mesh.device)
-        state = replicated(state, mesh)
-        dp_kw = dict(tile_batch=tb, batch_rows=batch_rows, loglam=loglam,
-                     n_real=n_real, plain=plain)
-        sync_fn = make_sync_dp_epoch_fn(
-            config, mesh, batches_per_launch=batches_per_launch,
-            **dp_kw) if dp_exact else None
-        chunk_fns: dict = {}  # chunk size -> local-SGD epoch function
-    n_tiles = data.size // tb  # this rank's
-    val_fn = make_val_fn(val_data, config.options) if writer else None
-    _save = make_ckpt_saver(output_dir, mu, save_full_state)
-    save_dir = output_dir if writer else None  # chunks end alike on all
-    if not writer:
-        logger = metrics_cb = None
-
-    def run_chunk(state, epoch, chunk):
-        """``chunk`` epochs from ``epoch``: (state, per-epoch losses)."""
-        perms = torch.stack([torch.as_tensor(shuffler.tiles(epoch + k,
-                                                            n_tiles))
-                             for k in range(chunk)])
+    with span("qfa.fit_fused"):
+        if dp_exact and mesh is None:
+            raise ValueError("dp_exact=True requires a mesh")
+        if dp_exact and epochs_per_launch > 1:
+            raise ValueError(
+                "dp_exact is incompatible with epochs_per_launch > 1: "
+                "exact-DP windows are sub-epoch (use batches_per_launch to "
+                "amortize calls instead)")
+        if mesh is not None and reshuffle_interval:
+            raise ValueError(
+                "reshuffle_interval is not supported with a mesh (the shards "
+                "reshuffle locally via the per-rank tile permutation)")
+        ndev = 1 if mesh is None else mesh.size
+        writer = mesh is None or mesh.rank == 0  # logs, validates, writes
+        if shuffler is None:
+            shuffler = SeededShuffler(seed, 0 if mesh is None else mesh.rank)
+        state = initial_state if initial_state is not None \
+            else TrainState(params, adam.init(params))
+        start_epoch = int(state.opt_state.epoch)
+        b = config.batch_size
+        if b % ndev:
+            raise ValueError(f"batch size {b} not divisible by the "
+                             f"{ndev}-device mesh")
+        n_real = data.size  # before padding: the loss divisor
+        if derive_mask:
+            data = data._replace(mask=None)
+        b_shard = b // ndev  # real rows of a batch on each rank
+        if tile_batch is None:
+            tb, shard_rows = pick_tiling(b_shard)
+        else:
+            tb = max(1, min(int(tile_batch), b_shard))
+            shard_rows = -(-b_shard // tb) * tb
+        batch_rows = shard_rows * ndev  # rows each update spans, all ranks
+        n_batches = max(-(-n_real // b), 1)
+        data = _pad_rows(data, n_batches * batch_rows - data.size)
+        engine = fused_train_epoch_plain if plain else fused_train_epoch
         if mesh is not None:
-            if sync_fn is not None:
-                state, loss = sync_fn(state, data, perms[0])
-            else:
-                fn = chunk_fns.get(chunk)
-                if fn is None:
-                    fn = chunk_fns[chunk] = make_epoch_dp_fn(
-                        config, mesh, epochs_per_launch=chunk, **dp_kw)
-                state, loss = fn(state, data, perms)
-            return state, [float(x) for x in loss.reshape(-1).cpu()]
-        out = engine(
-            state.params, state.opt_state.m, state.opt_state.v,
-            data.delta, data.error, data.zabs, perms, data.mask,
-            epoch=epoch, n_batches=n_batches, n_epochs=chunk, loglam=loglam,
-            derive_zabs=loglam is not None, tile_batch=tb,
-            learning_rate=config.learning_rate,
-            weight_decay=config.weight_decay, decay_alpha=config.decay_alpha,
-            decay_step=config.decay_step, b1=config.b1, b2=config.b2,
-            eps=config.eps, bounds=config.bounds,
-            tau_which=config.options.tau_which,
-            reference_norm=config.reference_norm, mxu_bf16=config.mxu_bf16,
-            bwd_wide=config.bwd_wide,
-        )
-        state = TrainState(out.params, adam.AdamState(
-            m=out.m, v=out.v, epoch=epoch + chunk))
-        # reference epoch loss: sum of batch means over floor(N_real / B)
-        means = out.loss_sums.reshape(chunk, -1) / torch.clamp(
-            out.n_real.reshape(chunk, -1), min=1.0)
-        return state, [float(x) for x in
-                       (means.sum(dim=1) / max(n_real // b, 1)).cpu()]
+            from ..parallel import (
+                make_epoch_dp_fn,
+                make_sync_dp_epoch_fn,
+                replicated,
+                shard_dataset,
+            )
 
-    if reshuffle_interval and start_epoch:
-        # exact resume: replay the reshuffles of the uninterrupted run
-        for past in range(reshuffle_interval, start_epoch, reshuffle_interval):
-            data = reshuffle_dataset(data, shuffler.rows(past, data.size))
+            data = shard_dataset(data, mesh)
+            if loglam is not None:
+                loglam = loglam.to(mesh.device)
+            state = replicated(state, mesh)
+            dp_kw = dict(tile_batch=tb, batch_rows=batch_rows, loglam=loglam,
+                         n_real=n_real, plain=plain)
+            sync_fn = make_sync_dp_epoch_fn(
+                config, mesh, batches_per_launch=batches_per_launch,
+                **dp_kw) if dp_exact else None
+            chunk_fns: dict = {}  # chunk size -> local-SGD epoch function
+        n_tiles = data.size // tb  # this rank's
+        val_fn = make_val_fn(val_data, config.options) if writer else None
+        _save = make_ckpt_saver(output_dir, mu, save_full_state)
+        save_dir = output_dir if writer else None  # chunks end alike on all
+        if not writer:
+            logger = metrics_cb = None
 
-    history: list = []
-    epl = max(1, int(epochs_per_launch))
-    epoch = start_epoch
-    while epoch < config.n_epochs:
-        # chunks end exactly at the next epoch-boundary action
-        chunk = min(epl, config.n_epochs - epoch,
-                    config.smooth_interval - epoch % config.smooth_interval)
-        if output_dir:
-            chunk = min(chunk,
-                        config.save_interval - epoch % config.save_interval)
-        if reshuffle_interval:
-            chunk = min(chunk,
-                        reshuffle_interval - epoch % reshuffle_interval)
-        if reshuffle_interval and epoch and epoch % reshuffle_interval == 0:
-            data = reshuffle_dataset(data, shuffler.rows(epoch, data.size))
-        t0 = time.perf_counter()
-        prev_state = state  # rollback anchor
-        state, losses = run_chunk(state, epoch, chunk)
-        raise_if_nonfinite(
-            f"fit_fused epoch{'s' if chunk > 1 else ''} {epoch}"
-            + (f"-{epoch + chunk - 1}" if chunk > 1 else ""), losses,
-            params=state.params, opt_state=state.opt_state)
-        dt = time.perf_counter() - t0
-        history.extend(losses)
-        rejected = config.reject_nonfinite and not all(
-            np.isfinite(x) for x in losses)
-        if rejected:
-            # epoch-level non-finite guard: restore params and moments,
-            # keep the advanced counter (a rejected step still counts)
-            state = TrainState(prev_state.params, adam.AdamState(
-                m=prev_state.opt_state.m, v=prev_state.opt_state.v,
-                epoch=state.opt_state.epoch))
-            if logger is not None:
-                logger.warning(
-                    "epoch%s %03d%s produced non-finite loss %s: update"
-                    " rejected, parameters and moments rolled back",
-                    "s" if chunk > 1 else "", epoch,
-                    f"-{epoch + chunk - 1:03d}" if chunk > 1 else "", losses)
-        val_loss = None if val_fn is None or rejected \
-            else val_fn(state.params)
-        for k, loss in enumerate(losses):
-            if logger is not None and not rejected:
-                msg = (f"epoch: {epoch + k:03d}/{config.n_epochs:03d}  ;  "
-                       f"loss:  {loss:.2f}  ;  time:  {dt / chunk:.2f} s")
-                if val_loss is not None and k == chunk - 1:
-                    msg += f"  ;  val_loss:  {val_loss:.2f}"
-                logger.info(msg)
-            if metrics_cb is not None:
-                metrics_cb(epoch + k, loss, dt / chunk)
-        ckpt = epoch + chunk
-        if config.stop_on_negative_loss and any(x < 0.0 for x in losses):
-            state.params = smooth_params(state.params)
-            if save_dir:
-                _save(state, ckpt)
-            break
-        if ckpt % config.smooth_interval == 0:
-            state.params = smooth_params(state.params)
-        if save_dir and ckpt % config.save_interval == 0:
-            _save(state, ckpt)
-        epoch = ckpt
-    return state.params, history
+        def draw(epoch, chunk):
+            """The tile permutations of ``chunk`` epochs from ``epoch``."""
+            return torch.stack([torch.as_tensor(shuffler.tiles(epoch + k,
+                                                               n_tiles))
+                                for k in range(chunk)])
+
+        def run_chunk(state, epoch, chunk, perms):
+            """``chunk`` epochs from ``epoch`` on ``perms``: (state,
+            per-epoch losses)."""
+            if mesh is not None:
+                if sync_fn is not None:
+                    state, loss = sync_fn(state, data, perms[0])
+                else:
+                    fn = chunk_fns.get(chunk)
+                    if fn is None:
+                        fn = chunk_fns[chunk] = make_epoch_dp_fn(
+                            config, mesh, epochs_per_launch=chunk, **dp_kw)
+                    state, loss = fn(state, data, perms)
+                with span("qfa.fit_fused.readback"):
+                    return state, [float(x) for x in loss.reshape(-1).cpu()]
+            out = engine(
+                state.params, state.opt_state.m, state.opt_state.v,
+                data.delta, data.error, data.zabs, perms, data.mask,
+                epoch=epoch, n_batches=n_batches, n_epochs=chunk,
+                loglam=loglam, derive_zabs=loglam is not None, tile_batch=tb,
+                learning_rate=config.learning_rate,
+                weight_decay=config.weight_decay,
+                decay_alpha=config.decay_alpha, decay_step=config.decay_step,
+                b1=config.b1, b2=config.b2, eps=config.eps,
+                bounds=config.bounds, tau_which=config.options.tau_which,
+                reference_norm=config.reference_norm,
+                mxu_bf16=config.mxu_bf16, bwd_wide=config.bwd_wide,
+            )
+            state = TrainState(out.params, adam.AdamState(
+                m=out.m, v=out.v, epoch=epoch + chunk))
+            with span("qfa.fit_fused.readback"):
+                # reference epoch loss: sum of batch means over
+                # floor(N_real / B)
+                means = out.loss_sums.reshape(chunk, -1) / torch.clamp(
+                    out.n_real.reshape(chunk, -1), min=1.0)
+                return state, [float(x) for x in
+                               (means.sum(dim=1) / max(n_real // b, 1)).cpu()]
+
+        if reshuffle_interval and start_epoch:
+            # exact resume: replay the reshuffles of the uninterrupted run
+            for past in range(reshuffle_interval, start_epoch,
+                              reshuffle_interval):
+                data = reshuffle_dataset(data, shuffler.rows(past, data.size))
+
+        history: list = []
+        epl = max(1, int(epochs_per_launch))
+        epoch = start_epoch
+        while epoch < config.n_epochs:
+            # chunks end exactly at the next epoch-boundary action
+            chunk = min(epl, config.n_epochs - epoch,
+                        config.smooth_interval
+                        - epoch % config.smooth_interval)
+            if output_dir:
+                chunk = min(chunk, config.save_interval
+                            - epoch % config.save_interval)
+            if reshuffle_interval:
+                chunk = min(chunk,
+                            reshuffle_interval - epoch % reshuffle_interval)
+            t0 = time.perf_counter()
+            with span("qfa.fit_fused.shuffle"):
+                if reshuffle_interval and epoch \
+                        and epoch % reshuffle_interval == 0:
+                    data = reshuffle_dataset(data,
+                                             shuffler.rows(epoch, data.size))
+                perms = draw(epoch, chunk)
+            prev_state = state  # rollback anchor
+            state, losses = run_chunk(state, epoch, chunk, perms)
+            with span("qfa.fit_fused.check"):
+                raise_if_nonfinite(
+                    f"fit_fused epoch{'s' if chunk > 1 else ''} {epoch}"
+                    + (f"-{epoch + chunk - 1}" if chunk > 1 else ""), losses,
+                    params=state.params, opt_state=state.opt_state)
+                dt = time.perf_counter() - t0
+                history.extend(losses)
+                rejected = config.reject_nonfinite and not all(
+                    np.isfinite(x) for x in losses)
+                if rejected:
+                    # epoch-level non-finite guard: restore params and
+                    # moments, keep the advanced counter (a rejected step
+                    # still counts)
+                    state = TrainState(prev_state.params, adam.AdamState(
+                        m=prev_state.opt_state.m, v=prev_state.opt_state.v,
+                        epoch=state.opt_state.epoch))
+                    if logger is not None:
+                        logger.warning(
+                            "epoch%s %03d%s produced non-finite loss %s: "
+                            "update rejected, parameters and moments rolled"
+                            " back", "s" if chunk > 1 else "", epoch,
+                            f"-{epoch + chunk - 1:03d}" if chunk > 1 else "",
+                            losses)
+            with span("qfa.fit_fused.report"):
+                val_loss = None if val_fn is None or rejected \
+                    else val_fn(state.params)
+                for k, loss in enumerate(losses):
+                    if logger is not None and not rejected:
+                        msg = (f"epoch: {epoch + k:03d}/"
+                               f"{config.n_epochs:03d}  ;  loss:  "
+                               f"{loss:.2f}  ;  time:  {dt / chunk:.2f} s")
+                        if val_loss is not None and k == chunk - 1:
+                            msg += f"  ;  val_loss:  {val_loss:.2f}"
+                        logger.info(msg)
+                    if metrics_cb is not None:
+                        metrics_cb(epoch + k, loss, dt / chunk)
+            ckpt = epoch + chunk
+            stop = config.stop_on_negative_loss and any(x < 0.0
+                                                        for x in losses)
+            if stop or ckpt % config.smooth_interval == 0:
+                with span("qfa.fit_fused.smooth"):
+                    state.params = smooth_params(state.params)
+            if save_dir and (stop or ckpt % config.save_interval == 0):
+                with span("qfa.fit_fused.save"):
+                    _save(state, ckpt)
+            if stop:
+                break
+            epoch = ckpt
+        return state.params, history

@@ -4,6 +4,21 @@
 * :func:`trace`: a ``torch.profiler`` trace of a block (CPU activity, and
   the card's when one is in use), written as a Chrome trace JSON that
   TensorBoard's profiler plugin and Perfetto read;
+* :func:`span`: a named host range in such a trace, on the clock of the
+  card's events. The port's hot paths mark their host phases with it, so
+  a ``RUNTIME.PROFILE_DIR`` trace shows what the host was doing while the
+  card waited: ``qfa.fit_fused`` around a training call and, inside it
+  for each call of the epoch engine, ``qfa.fit_fused.shuffle`` (the tile
+  permutations drawn, and a physical reshuffle), ``qfa.epoch_kernel.launch``
+  (the CUDA wrapper's checks, set-up, permutation copy and launch),
+  ``qfa.fit_fused.readback`` (the loss read back: the call's one
+  synchronization), ``qfa.fit_fused.check`` (the non-finite test and a
+  rollback), ``qfa.fit_fused.report`` (validation, log lines, the metrics
+  callback), then ``qfa.fit_fused.smooth`` and ``qfa.fit_fused.save`` at
+  their intervals; ``qfa.fused_predict`` around a prediction call, with
+  ``qfa.fused_predict.launch`` around the CUDA launch (the rest of it is
+  the host's preparation). A span is a ``cpu_op`` event, like an aten
+  operator's, and has no mirror on the card's rows;
 * :func:`timed`: a wall timer that waits for the card's queued work;
 * :func:`tree_health`: NaN/Inf and magnitude summary per leaf, keyed as
   ``jax.tree_util.keystr`` keys the JAX package's;
@@ -28,6 +43,7 @@ import torch
 
 __all__ = [
     "is_cuda",
+    "span",
     "trace",
     "timed",
     "tree_health",
@@ -85,6 +101,22 @@ def trace(log_dir: str, *, device=None) -> Iterator[None]:
             if cuda:
                 torch.cuda.synchronize(warm.device)
             prof.step()
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that records ``name`` as a host range while
+    ``torch.profiler`` is on (:func:`trace`, ``RUNTIME.PROFILE_DIR``), on
+    the clock of the card's events; with the profiler off, one shared
+    no-op (the cost of a flag test). The range is a ``cpu_op`` event, not
+    a ``record_function`` annotation: an annotation is mirrored onto the
+    card's rows over the kernels launched inside it, where it would read
+    as device work."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 def _sync() -> None:

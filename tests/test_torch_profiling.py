@@ -129,6 +129,35 @@ def test_cpu_trace_writes_a_readable_chrome_trace(tmp_path):
     assert "aten::add_" not in names  # the warm-up step was dropped
 
 
+def test_cpu_trace_of_a_training_holds_fit_fused_spans(tmp_path):
+    """A ``trace`` of a short ``fit_fused`` run (the operator's
+    ``RUNTIME.PROFILE_DIR`` path) writes the trainer's host phases into
+    the Chrome trace JSON as ``cpu_op`` events: one ``qfa.fit_fused``,
+    each epoch's four phases, the smoothing and the checkpoint once."""
+    from qfa_tpu_torch.models.params import random_init
+
+    planes = tiny()
+    cfg = TrainConfig(n_epochs=2, batch_size=8, learning_rate=1e-2,
+                      smooth_interval=2, save_interval=2)
+    p = random_init(30, 10, 2, generator=torch.Generator().manual_seed(1))
+    data = ResidualDataset(*(torch.tensor(x) for x in planes))
+    with trace(str(tmp_path / "prof"), device="cpu"):
+        fit_fused(p, data, np.ones(30, np.float32), cfg,
+                  output_dir=str(tmp_path / "run"))
+    files = glob.glob(str(tmp_path / "prof" / "*.pt.trace.json"))
+    assert len(files) == 1
+    with open(files[0]) as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e.get("name", "").startswith("qfa.")]
+    names = [e["name"] for e in spans]
+    assert names.count("qfa.fit_fused") == 1
+    for phase in ("shuffle", "readback", "check", "report"):
+        assert names.count(f"qfa.fit_fused.{phase}") == 2, phase
+    for phase in ("smooth", "save"):
+        assert names.count(f"qfa.fit_fused.{phase}") == 1, phase
+    assert {e["cat"] for e in spans} == {"cpu_op"}
+
+
 def write_nan_init(root, grid_npix=54, nb=25, nh=3):
     """A JAX checkpoint with a NaN in F (its mu ones) for --resume."""
     p = jax_random_init(jax.random.key(0), grid_npix, nb, nh)

@@ -79,6 +79,7 @@ __all__ = [
     "fused_train_epoch",
     "fused_train_epoch_plain",
     "pending_len",
+    "upload",
 ]
 
 #: Calls that launched the CUDA epoch kernel in this process. Incremented
@@ -741,6 +742,17 @@ def _count(calls: int, window_calls: int) -> None:
         WINDOW_LAUNCHES += window_calls
 
 
+def upload(t, device) -> Tensor:
+    """``t`` on ``device``. A host tensor goes to a CUDA device through
+    pinned memory with ``non_blocking``, so the call does not wait for the
+    stream (the caching host allocator keeps the pinned block until the
+    copy has run)."""
+    t = torch.as_tensor(t)
+    if torch.device(device).type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _launch(params, m, v, delta, error, zabs, mask, loglam, geo, *,
             n_batches, n_epochs, pending=None, **kw
             ) -> EpochOutputs | SyncEpochOutputs:
@@ -752,8 +764,8 @@ def _launch(params, m, v, delta, error, zabs, mask, loglam, geo, *,
     # the window's export: every float written by the kernel
     pend_out = torch.empty((pending_len(geo.npix, geo.nh),), **f32) \
         if geo.window and n_batches else None
-    k.run(geo.perm.to(delta.device, torch.int32), n_batches, n_epochs, losses,
-          reals, k.pending, pend_out)
+    k.run(upload(geo.perm.to(torch.int32), delta.device), n_batches,
+          n_epochs, losses, reals, k.pending, pend_out)
     loss_sums, n_real = _shape_outputs(losses, reals, n_epochs, n_batches)
     params, m, v = k.outputs()
     outs = dict(params=params, m=m, v=v, loss_sums=loss_sums, n_real=n_real)

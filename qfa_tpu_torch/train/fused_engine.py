@@ -26,6 +26,22 @@ collective per call) or, with ``dp_exact``, ``parallel.sync_dp`` (exact
 DP, ``batches_per_launch`` batches per call and collective). Each rank
 draws its own tile permutations (the default shuffler adds the rank to
 its seed from rank 1 on); only rank 0 logs, validates and writes.
+
+Lookahead: on one device the loop keeps the device one chunk ahead of
+the host. Before it reads a chunk's losses back it enqueues that
+chunk's epoch-boundary work (the smoothing, the checkpoint's copy to
+the host) and launches the next chunk from the state the chunk leaves,
+so no call between two launches waits for the device (:data:`AHEAD`
+counts those epochs). The held-out loss is then taken on the chunk's
+own state, which the next chunk's engine does not write. A rejected or
+stopping chunk drops what was enqueued on its state (:data:`DISCARDED`),
+then restores, smooths, saves or stops as the loop without lookahead
+does, and launches the next chunk again on the permutations already
+drawn. An error in the next chunk's shuffle or launch is raised once
+this chunk is read, reported and saved (and dropped when this chunk
+stops the run, which never reaches the next). With a mesh (its calls
+wait inside their collectives) each chunk is read back before the next
+is drawn.
 """
 
 from __future__ import annotations
@@ -38,8 +54,12 @@ import numpy as np
 import torch
 
 from ..data.loader import ResidualDataset
-from ..models.params import QFAParams, smooth_params
-from ..ops.epoch_kernel import fused_train_epoch, fused_train_epoch_plain
+from ..models.params import PARAM_NAMES, QFAParams, smooth_params
+from ..ops.epoch_kernel import (
+    fused_train_epoch,
+    fused_train_epoch_plain,
+    upload,
+)
 from ..utils.profiling import raise_if_nonfinite, span
 from . import adam
 from .loop import (
@@ -50,7 +70,15 @@ from .loop import (
     reshuffle_dataset,
 )
 
-__all__ = ["Shuffler", "SeededShuffler", "pick_tiling", "fit_fused"]
+__all__ = ["Shuffler", "SeededShuffler", "pick_tiling", "fit_fused",
+           "AHEAD", "DISCARDED"]
+
+#: Epochs launched by :func:`fit_fused` before the losses of the chunk
+#: before them were read back (module docstring).
+AHEAD = 0
+#: ... of them dropped because that chunk was rejected or stopped the run.
+DISCARDED = 0
+
 
 class Shuffler(Protocol):
     """Source of the per-epoch permutations of :func:`fit_fused`."""
@@ -103,6 +131,46 @@ def pick_tiling(batch_size: int, limit: int = 256) -> tuple[int, int]:
     return tb, batch_size
 
 
+def _to_host(tensors: list[torch.Tensor]) -> Callable[[], list]:
+    """Enqueue host copies of ``tensors`` (on one device) and return a
+    function that waits for them and gives them. On CUDA the copies go to
+    pinned memory behind the stream's work, and nothing waits for the
+    device until that function is called; elsewhere they are the tensors
+    themselves."""
+    tensors = [t.detach() for t in tensors]
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        return lambda: tensors
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dev))
+
+    def wait() -> list:
+        done.synchronize()
+        return host
+
+    return wait
+
+
+def _state_to_host(state: TrainState) -> Callable[[], TrainState]:
+    """:func:`_to_host` of a whole state: the wait gives it as a
+    ``TrainState`` of host tensors (what the checkpoint writers take)."""
+    trees = (state.params, state.opt_state.m, state.opt_state.v)
+    wait = _to_host([getattr(t, k) for t in trees for k in PARAM_NAMES])
+    n = len(PARAM_NAMES)
+
+    def get() -> TrainState:
+        host = wait()
+        p, m, v = (QFAParams.wrap(*host[i:i + n]) for i in (0, n, 2 * n))
+        return TrainState(p, adam.AdamState(m=m, v=v,
+                                            epoch=state.opt_state.epoch))
+
+    return get
+
+
 def _pad_rows(data: ResidualDataset, pad: int) -> ResidualDataset:
     if not pad:
         return data
@@ -153,6 +221,7 @@ def fit_fused(
     reshuffles its shard through its tile permutations).
     Returns (final params, per-epoch loss history of the epochs run here).
     """
+    global AHEAD, DISCARDED
     with span("qfa.fit_fused"):
         if dp_exact and mesh is None:
             raise ValueError("dp_exact=True requires a mesh")
@@ -209,10 +278,13 @@ def fit_fused(
             chunk_fns: dict = {}  # chunk size -> local-SGD epoch function
         n_tiles = data.size // tb  # this rank's
         val_fn = make_val_fn(val_data, config.options) if writer else None
+        if isinstance(mu, torch.Tensor):
+            mu = mu.detach().cpu()  # once, not a device read per save
         _save = make_ckpt_saver(output_dir, mu, save_full_state)
         save_dir = output_dir if writer else None  # chunks end alike on all
         if not writer:
             logger = metrics_cb = None
+        lookahead = mesh is None
 
         def draw(epoch, chunk):
             """The tile permutations of ``chunk`` epochs from ``epoch``."""
@@ -220,54 +292,11 @@ def fit_fused(
                                                                n_tiles))
                                 for k in range(chunk)])
 
-        def run_chunk(state, epoch, chunk, perms):
-            """``chunk`` epochs from ``epoch`` on ``perms``: (state,
-            per-epoch losses)."""
-            if mesh is not None:
-                if sync_fn is not None:
-                    state, loss = sync_fn(state, data, perms[0])
-                else:
-                    fn = chunk_fns.get(chunk)
-                    if fn is None:
-                        fn = chunk_fns[chunk] = make_epoch_dp_fn(
-                            config, mesh, epochs_per_launch=chunk, **dp_kw)
-                    state, loss = fn(state, data, perms)
-                with span("qfa.fit_fused.readback"):
-                    return state, [float(x) for x in loss.reshape(-1).cpu()]
-            out = engine(
-                state.params, state.opt_state.m, state.opt_state.v,
-                data.delta, data.error, data.zabs, perms, data.mask,
-                epoch=epoch, n_batches=n_batches, n_epochs=chunk,
-                loglam=loglam, derive_zabs=loglam is not None, tile_batch=tb,
-                learning_rate=config.learning_rate,
-                weight_decay=config.weight_decay,
-                decay_alpha=config.decay_alpha, decay_step=config.decay_step,
-                b1=config.b1, b2=config.b2, eps=config.eps,
-                bounds=config.bounds, tau_which=config.options.tau_which,
-                reference_norm=config.reference_norm,
-                mxu_bf16=config.mxu_bf16, bwd_wide=config.bwd_wide,
-            )
-            state = TrainState(out.params, adam.AdamState(
-                m=out.m, v=out.v, epoch=epoch + chunk))
-            with span("qfa.fit_fused.readback"):
-                # reference epoch loss: sum of batch means over
-                # floor(N_real / B)
-                means = out.loss_sums.reshape(chunk, -1) / torch.clamp(
-                    out.n_real.reshape(chunk, -1), min=1.0)
-                return state, [float(x) for x in
-                               (means.sum(dim=1) / max(n_real // b, 1)).cpu()]
-
-        if reshuffle_interval and start_epoch:
-            # exact resume: replay the reshuffles of the uninterrupted run
-            for past in range(reshuffle_interval, start_epoch,
-                              reshuffle_interval):
-                data = reshuffle_dataset(data, shuffler.rows(past, data.size))
-
-        history: list = []
-        epl = max(1, int(epochs_per_launch))
-        epoch = start_epoch
-        while epoch < config.n_epochs:
-            # chunks end exactly at the next epoch-boundary action
+        def prepare(epoch):
+            """The chunk from ``epoch``, ending exactly at the next
+            epoch-boundary action: its length and permutations, after the
+            physical reshuffle that starts it."""
+            nonlocal data
             chunk = min(epl, config.n_epochs - epoch,
                         config.smooth_interval
                         - epoch % config.smooth_interval)
@@ -277,21 +306,104 @@ def fit_fused(
             if reshuffle_interval:
                 chunk = min(chunk,
                             reshuffle_interval - epoch % reshuffle_interval)
-            t0 = time.perf_counter()
             with span("qfa.fit_fused.shuffle"):
                 if reshuffle_interval and epoch \
                         and epoch % reshuffle_interval == 0:
-                    data = reshuffle_dataset(data,
-                                             shuffler.rows(epoch, data.size))
-                perms = draw(epoch, chunk)
+                    data = reshuffle_dataset(data, upload(
+                        shuffler.rows(epoch, data.size), data.delta.device))
+                return chunk, draw(epoch, chunk)
+
+        def launch(state, epoch, chunk, perms):
+            """Enqueue ``chunk`` epochs from ``epoch`` on ``perms``: (state
+            after them, a function that reads their losses back)."""
+            if mesh is not None:
+                if sync_fn is not None:
+                    state, loss = sync_fn(state, data, perms[0])
+                else:
+                    fn = chunk_fns.get(chunk)
+                    if fn is None:
+                        fn = chunk_fns[chunk] = make_epoch_dp_fn(
+                            config, mesh, epochs_per_launch=chunk, **dp_kw)
+                    state, loss = fn(state, data, perms)
+                wait = _to_host([loss.reshape(-1)])
+            else:
+                out = engine(
+                    state.params, state.opt_state.m, state.opt_state.v,
+                    data.delta, data.error, data.zabs, perms, data.mask,
+                    epoch=epoch, n_batches=n_batches, n_epochs=chunk,
+                    loglam=loglam, derive_zabs=loglam is not None,
+                    tile_batch=tb, learning_rate=config.learning_rate,
+                    weight_decay=config.weight_decay,
+                    decay_alpha=config.decay_alpha,
+                    decay_step=config.decay_step, b1=config.b1,
+                    b2=config.b2, eps=config.eps, bounds=config.bounds,
+                    tau_which=config.options.tau_which,
+                    reference_norm=config.reference_norm,
+                    mxu_bf16=config.mxu_bf16, bwd_wide=config.bwd_wide,
+                )
+                state = TrainState(out.params, adam.AdamState(
+                    m=out.m, v=out.v, epoch=epoch + chunk))
+                # reference epoch loss: sum of batch means over
+                # floor(N_real / B)
+                means = out.loss_sums.reshape(chunk, -1) / torch.clamp(
+                    out.n_real.reshape(chunk, -1), min=1.0)
+                wait = _to_host([means.sum(dim=1) / max(n_real // b, 1)])
+
+            def read():
+                with span("qfa.fit_fused.readback"):
+                    return [float(x) for x in wait()[0]]
+
+            return state, read
+
+        if reshuffle_interval and start_epoch:
+            # exact resume: replay the reshuffles of the uninterrupted run
+            for past in range(reshuffle_interval, start_epoch,
+                              reshuffle_interval):
+                data = reshuffle_dataset(data, upload(
+                    shuffler.rows(past, data.size), data.delta.device))
+
+        history: list = []
+        epl = max(1, int(epochs_per_launch))
+        epoch = start_epoch
+        # the chunk from ``epoch`` when the last one prepared it:
+        # (chunk, perms, (state after it, read) or None when not launched)
+        todo = None
+        t_last = time.perf_counter()
+        while epoch < config.n_epochs:
+            chunk, perms, launched = todo or (*prepare(epoch), None)
+            todo = failed = None
             prev_state = state  # rollback anchor
-            state, losses = run_chunk(state, epoch, chunk, perms)
+            state, read = launched or launch(state, epoch, chunk, perms)
+            ckpt = epoch + chunk
+            smooth_now = ckpt % config.smooth_interval == 0
+            save_now = save_dir and ckpt % config.save_interval == 0
+            if lookahead:
+                # the state the next chunk starts from, its checkpoint's
+                # copy and the next chunk, all enqueued before the read
+                nxt = state
+                if smooth_now:
+                    with span("qfa.fit_fused.smooth"):
+                        nxt = TrainState(smooth_params(state.params),
+                                         state.opt_state)
+                if save_now:
+                    snapshot = _state_to_host(nxt)
+                if ckpt < config.n_epochs:
+                    try:
+                        n_chunk, n_perms = prepare(ckpt)
+                        todo = (n_chunk, n_perms,
+                                launch(nxt, ckpt, n_chunk, n_perms))
+                    except Exception as e:
+                        failed = e  # raised once this chunk is saved
+                    else:
+                        AHEAD += n_chunk
+            losses = read()
+            now = time.perf_counter()
+            dt, t_last = now - t_last, now
             with span("qfa.fit_fused.check"):
                 raise_if_nonfinite(
                     f"fit_fused epoch{'s' if chunk > 1 else ''} {epoch}"
                     + (f"-{epoch + chunk - 1}" if chunk > 1 else ""), losses,
                     params=state.params, opt_state=state.opt_state)
-                dt = time.perf_counter() - t0
                 history.extend(losses)
                 rejected = config.reject_nonfinite and not all(
                     np.isfinite(x) for x in losses)
@@ -309,6 +421,13 @@ def fit_fused(
                             " back", "s" if chunk > 1 else "", epoch,
                             f"-{epoch + chunk - 1:03d}" if chunk > 1 else "",
                             losses)
+                stop = config.stop_on_negative_loss and any(x < 0.0
+                                                            for x in losses)
+                ahead_kept = lookahead and not (rejected or stop)
+                if lookahead and not ahead_kept and todo is not None:
+                    # drop the next chunk's launch; keep its permutations
+                    DISCARDED += todo[0]
+                    todo = (*todo[:2], None)
             with span("qfa.fit_fused.report"):
                 val_loss = None if val_fn is None or rejected \
                     else val_fn(state.params)
@@ -322,16 +441,21 @@ def fit_fused(
                         logger.info(msg)
                     if metrics_cb is not None:
                         metrics_cb(epoch + k, loss, dt / chunk)
-            ckpt = epoch + chunk
-            stop = config.stop_on_negative_loss and any(x < 0.0
-                                                        for x in losses)
-            if stop or ckpt % config.smooth_interval == 0:
-                with span("qfa.fit_fused.smooth"):
-                    state.params = smooth_params(state.params)
-            if save_dir and (stop or ckpt % config.save_interval == 0):
-                with span("qfa.fit_fused.save"):
-                    _save(state, ckpt)
+            if ahead_kept:
+                state = nxt
+                if save_now:
+                    with span("qfa.fit_fused.save"):
+                        _save(snapshot(), ckpt)
+            else:
+                if stop or smooth_now:
+                    with span("qfa.fit_fused.smooth"):
+                        state.params = smooth_params(state.params)
+                if save_dir and (stop or save_now):
+                    with span("qfa.fit_fused.save"):
+                        _save(state, ckpt)
             if stop:
                 break
+            if failed is not None:
+                raise failed
             epoch = ckpt
         return state.params, history

@@ -11,9 +11,10 @@
   for each call of the epoch engine, ``qfa.fit_fused.shuffle`` (the tile
   permutations drawn, and a physical reshuffle), ``qfa.epoch_kernel.launch``
   (the CUDA wrapper's checks, set-up, permutation copy and launch),
-  ``qfa.fit_fused.readback`` (the loss read back: the call's one
-  synchronization), ``qfa.fit_fused.check`` (the non-finite test and a
-  rollback), ``qfa.fit_fused.report`` (validation, log lines, the metrics
+  ``qfa.fit_fused.readback`` (the wait for the device and the loss read
+  back: the call's one synchronization; on one device the next chunk's
+  shuffle and launch come before it), ``qfa.fit_fused.check`` (the
+  non-finite test and a rollback), ``qfa.fit_fused.report`` (validation, log lines, the metrics
   callback), then ``qfa.fit_fused.smooth`` and ``qfa.fit_fused.save`` at
   their intervals; ``qfa.fused_predict`` around a prediction call, with
   ``qfa.fused_predict.launch`` around the CUDA launch (the rest of it is

@@ -18,13 +18,14 @@ from qfa_tpu_torch.data.loader import ResidualDataset
 from qfa_tpu_torch.models.params import random_init
 from qfa_tpu_torch.ops import _build, epoch_kernel, infer_kernel
 from qfa_tpu_torch.ops.common import tau_law_abc
-from qfa_tpu_torch.train import TrainConfig, fit_fused
+from qfa_tpu_torch.train import TrainConfig, fit_fused, fused_engine
 from qfa_tpu_torch.utils import profiling
 from qfa_tpu_torch.utils.profiling import span
 
 NPIX, NB, NH, N = 30, 10, 2, 40
-EPOCH_PHASES = ["qfa.fit_fused.shuffle", "qfa.fit_fused.readback",
-                "qfa.fit_fused.check", "qfa.fit_fused.report"]
+LAUNCH = ["qfa.fit_fused.shuffle", "qfa.epoch_kernel.launch"]
+READ = ["qfa.fit_fused.readback", "qfa.fit_fused.check",
+        "qfa.fit_fused.report"]
 CHECKPOINT = ["qfa.fit_fused.smooth", "qfa.fit_fused.save"]
 
 
@@ -96,18 +97,31 @@ def test_span_is_one_shared_noop_with_the_profiler_off():
 
 
 @pytest.mark.parametrize("epochs_per_launch", [1, 2])
-def test_fit_fused_records_its_phases_in_loop_order(tmp_path,
+def test_fit_fused_records_its_phases_in_loop_order(tmp_path, monkeypatch,
                                                     epochs_per_launch):
-    """Four epochs, smoothing and checkpoints every two: each chunk's
-    phases once, in loop order, inside one ``qfa.fit_fused``."""
+    """Four epochs, smoothing and checkpoints every two, the plain engine
+    in a launch span as the CUDA wrapper's: each chunk's phases once, in
+    loop order, inside one ``qfa.fit_fused``; the next chunk's shuffle
+    and launch (and this chunk's smoothing) come before this chunk's
+    read-back, its checkpoint after its report."""
+    plain = fused_engine.fused_train_epoch_plain
+
+    def engine(*args, **kw):
+        with span("qfa.epoch_kernel.launch"):
+            return plain(*args, **kw)
+
+    monkeypatch.setattr(fused_engine, "fused_train_epoch_plain", engine)
     _, prof = profiled(lambda: train(tmp_path, epochs_per_launch))
     ev = events(prof)
     assert [e[0] for e in ev if e[0] == "qfa.fit_fused"] == ["qfa.fit_fused"]
     _, lo, hi, _ = ev[0]
     assert ev[0][0] == "qfa.fit_fused"
     assert all(lo <= s and e <= hi for _, s, e, _ in ev)
-    per_chunk = {1: [EPOCH_PHASES, EPOCH_PHASES + CHECKPOINT] * 2,
-                 2: [EPOCH_PHASES + CHECKPOINT] * 2}[epochs_per_launch]
+    smooth, save = ([x] for x in CHECKPOINT)
+    per_chunk = {1: [LAUNCH, LAUNCH, READ, smooth, LAUNCH, READ, save,
+                     LAUNCH, READ, smooth, READ, save],
+                 2: [LAUNCH, smooth, LAUNCH, READ, save, smooth, READ,
+                     save]}[epochs_per_launch]
     assert [e[0] for e in ev[1:]] == sum(per_chunk, [])
     # siblings: each phase ends before the next starts
     assert all(a[2] <= b[1] for a, b in zip(ev[1:], ev[2:]))

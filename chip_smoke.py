@@ -21,10 +21,14 @@ made from a seed:
    in three plane modes;
 3. kernel against its plain version on the same CUDA tensors, within the
    tolerances of the CPU parity tests, at SDSS width (4096 spectra) and
-   DESI width (Npix 9243, Nb 2238; 512 spectra), in each mode of the path;
-   every nh 1-10 at SDSS (512 spectra) and DESI width (128); n = 1 and
-   n = 301 (a part tile); and, bitwise, a second launch on the same input
-   and rows 0-63 and row 1000 predicted alone against the 4096 batch;
+   DESI width (Npix 9243, Nb 2238; 512 spectra), in each mode of the path,
+   on float32 planes in both bodies (predict.cu and the tensor-core body's
+   float32 instantiation, which ``fused_predict`` routes calls of at least
+   ``TC_MIN_ROWS`` spectra to); every nh 1-10 at SDSS (512 spectra) and
+   DESI width (128); n = 1 and n = 301 (a part tile); and, bitwise, a
+   second launch on the same input and rows 0-63 and row 1000 predicted
+   alone (on the body the route took for the batch) against the 4096
+   batch;
    then the bfloat16 modes at SDSS (512 spectra) and DESI width (128), nh
    1, 8 and 10, in both modes, full output and stats_only: bf16
    flux/error (the tensor-core body), bf16 mask and zabs planes (float32
@@ -41,12 +45,15 @@ made from a seed:
    (``qfa_tpu_torch.native``), whose arrays must equal the Python pool's
    bitwise; both readers' seconds on the same files;
 5. serving: ``QFAPredictor(device="cuda")`` behind its HTTP server;
-6. times of the kernel and the plain version at 65536 spectra (a survey
-   sweep), 8192 (the predict CLI's chunk), 64 (serving's max_batch) and 1,
-   full output and stats_only, each with its GB/s and its share of its
-   bound; then on bf16 planes at 65536, 8192 and 64 spectra, in turns on
-   the same planes: the tensor-core body, predict.cu on the same bf16
-   planes, and predict.cu's float32 kernel on the planes upcast;
+6. times of the kernel (the route) and the plain version at 65536 spectra
+   (a survey sweep), 8192 (the predict CLI's chunk), 64 (serving's
+   max_batch) and 1, full output and stats_only, each with its GB/s and
+   its share of its bound, and at the CLI's chunk each body by name, at
+   SDSS and at DESI width; the two bodies' device times on float32 planes
+   at 512-8192 spectra at both widths (the crossover that sets
+   ``TC_MIN_ROWS``); then on bf16 planes at 65536, 8192 and 64 spectra, in
+   turns on the same planes: the tensor-core body, predict.cu on the same
+   bf16 planes, and predict.cu's float32 kernel on the planes upcast;
 7. the epoch kernel against its plain version on the same CUDA tensors:
    SDSS width (4096 spectra, batch 512, 2 epochs) and DESI width (512
    spectra, 1 epoch), derived and plane layouts, and the training CLI's
@@ -149,12 +156,14 @@ made from a seed:
     ``select_ood`` of the top 1,024, predicted with bf16 output planes,
     ``sample_posterior_continua`` on 64 of them; ``predict_resident`` and
     ``score_resident`` over the first 65,536 spectra's float32 originals
-    against the kernel; every launch counted, per body. Readings, in
+    against the kernel; every launch counted, per body (the float32
+    originals on the tensor-core body when the route takes it at 65,536
+    rows). Readings, in
     turns on the same planes: the sweep on the tensor-core body, on
     predict.cu on the same bf16 planes, on predict.cu's float32 kernel
     and on the tensor-core body's float32 instantiation over the upcast;
     full output at 65,536 spectra in the four (plane, output) dtype pairs
-    and on predict.cu on the bf16 planes; the plain version over the
+    and on predict.cu on either planes; the plain version over the
     whole sweep; the resident functions' times, peak device memory and
     the top-1,024 overlap of bf16 and float32 planes;
 19. the reference-API facade, profiling, NaN debugging and the MDN:
@@ -510,15 +519,20 @@ def check_bitwise(name, got, want):
 
 
 def phase_kernel_vs_plain(device):
-    from qfa_tpu_torch.ops.infer_kernel import fused_predict, fused_predict_plain
+    from qfa_tpu_torch.ops.infer_kernel import (
+        _fused_predict_body,
+        _route,
+        fused_predict,
+        fused_predict_plain,
+    )
 
     worst = 0.0
 
     def held(name, params, mu, planes, args, kw, tol=TOL, stats_only=False,
-             n_label=None):
+             body=None):
         nonlocal worst
-        got = fused_predict(params, mu, *planes, *args,
-                            stats_only=stats_only, **kw)
+        got = _fused_predict_body(body, params, mu, *planes, *args,
+                                  stats_only=stats_only, **kw)
         torch.cuda.synchronize()
         want = fused_predict_plain(params, mu, *planes, *args,
                                    stats_only=stats_only, **kw)
@@ -540,30 +554,34 @@ def phase_kernel_vs_plain(device):
         if regime == "low-noise":
             tol["ll"] = dict(rtol=LOW_NOISE_LL_RTOL, atol=0.0)
         for mode, args, kw in modes:
-            for stats_only in (False, True):
+            # float32 planes: either body, whichever the route picks at n
+            for stats_only, body in itertools.product((False, True),
+                                                      ("warp", "tc")):
                 name = (f"{label} {regime} {mode}"
-                        f"{' stats_only' if stats_only else ''}")
+                        f"{' stats_only' if stats_only else ''} {body} body")
                 got = held(name, params, mu, planes, args, kw, tol,
-                           stats_only)
+                           stats_only, body)
                 check(float(got.ll[0]) == 0.0 and float(got.n_obs[0]) == 0.0,
                       f"{name}: fully masked row is not inert")
             if (label, regime) != ("SDSS", "moderate"):
                 continue
             # bitwise: a second launch, and rows 0-63 and row 1000 alone
+            # on the body the batch ran (the route goes by N)
+            body = _route(*planes)
             batch = fused_predict(params, mu, *planes, *args, **kw)
             again = fused_predict(params, mu, *planes, *args, **kw)
             check_bitwise(f"{label} {mode}: second launch", again, batch)
             for rows in (slice(0, 64), slice(1000, 1001)):
                 sub = [None if t is None else t[rows].contiguous()
                        for t in args]
-                alone = fused_predict(params, mu, *(t[rows].contiguous()
-                                                    for t in planes),
-                                      *sub, **kw)
+                alone = _fused_predict_body(
+                    body, params, mu, *(t[rows].contiguous()
+                                        for t in planes), *sub, **kw)
                 check_bitwise(f"{label} {mode}: rows {rows.start}-"
                               f"{rows.stop - 1} alone", alone,
                               rows_of(batch, rows))
             say(f"  {label} {mode}: a second launch, rows 0-63 alone and row "
-                "1000 alone equal the 4096 batch bitwise")
+                f"1000 alone ({body} body) equal the 4096 batch bitwise")
     # every instantiated nh at both widths (modes in turn), n = 1 and a
     # ragged n
     for label, grid_kw, n in (("SDSS", SDSS, 512), ("DESI", DESI, 128)):
@@ -605,13 +623,6 @@ def check_bf16_out(name, f32, out):
               f"call's {'cast ' if b.dtype != torch.float32 else ''}bitwise")
 
 
-def witness_body(planes):
-    """The body of ``fused_predict`` on these flux/error planes: the
-    tensor-core body (``csrc/predict_tc.cu``) on bfloat16 flux and error,
-    ``csrc/predict.cu`` otherwise."""
-    return "tc" if all(t.dtype is torch.bfloat16 for t in planes) else "warp"
-
-
 def phase_bf16_vs_plain(device):
     """Phase 3's bfloat16 modes: at SDSS and DESI width and nh 1, 8, 10,
     in both modes, full output and stats_only, every case of BF16_CASES
@@ -628,6 +639,7 @@ def phase_bf16_vs_plain(device):
     from qfa_tpu_torch.ops import infer_kernel
     from qfa_tpu_torch.ops.infer_kernel import (
         _fused_predict_body,
+        _route,
         fused_predict,
         fused_predict_plain,
     )
@@ -672,7 +684,7 @@ def phase_bf16_vs_plain(device):
                             **kw)
                         err, _ = compare(tag, got, want, TOL)
                         worst = max(worst, err)
-                        body = witness_body(p_b)
+                        body = _route(*p_b)
                         check_bitwise(f"{tag} against the {body} body's "
                                       "float32 kernel on the upcast planes",
                                       got, _fused_predict_body(
@@ -680,8 +692,9 @@ def phase_bf16_vs_plain(device):
                                           *upcast(a_b),
                                           stats_only=stats_only, **kw))
                         rows = slice(0, 64)
-                        alone = fused_predict(
-                            params, mu, *(t[rows].contiguous() for t in p_b),
+                        alone = _fused_predict_body(
+                            body, params, mu,
+                            *(t[rows].contiguous() for t in p_b),
                             *(None if t is None else t[rows].contiguous()
                               for t in a_b), stats_only=stats_only, **kw)
                         check_bitwise(f"{tag}: rows 0-63 alone", alone,
@@ -697,6 +710,7 @@ def phase_bf16_vs_plain(device):
                     params, mu, *planes, *args, **kw), fused_predict(
                     params, mu, *planes, *args, out_dtype=bf, **kw))
                 calls += 2
+                want_tc += 2 * (_route(*planes) == "tc")
                 say(f"  {label} nh={nh} {mode}, bfloat16: {', '.join(seen)}"
                     " (full output and stats_only) within TOL of the plain "
                     "version on the same planes, bitwise equal to the same "
@@ -995,6 +1009,7 @@ def zero_counts():
     kernel_modules()[0].BF16_LAUNCHES = 0  # infer_kernel's bf16 modes
     kernel_modules()[0].TC_LAUNCHES = 0  # ... and its two bodies
     kernel_modules()[0].WARP_LAUNCHES = 0
+    kernel_modules()[0].TC_F32_LAUNCHES = 0  # ... the tc body's float32
 
 
 def other_counts(mod):
@@ -1036,46 +1051,167 @@ def time_cuda_queued(fn, reps):
 #: phase 6's sizes: a survey sweep, the CLI's chunk (infer/predict.py),
 #: serving's max_batch and a single spectrum
 PREDICT_SIZES = (65536, 8192, 64, 1)
+#: ... the CLI's chunk, where both bodies are read at both widths
+CLI_CHUNK = 8192
+#: phase 6's crossover of the two bodies on float32 planes: these sizes
+ROUTE_SIZES = (512, 1024, 1536, 2048, 3072, 4096, 6144, 8192)
 #: kernel calls under torch.profiler per size (device time per launch)
 PROFILED_CALLS = 5
 
 
+def device_ms_per_call(by_name, counts):
+    """Device ms per call of the prediction path in a profile: each of its
+    kernels' mean span (every name with "predict" and "kernel", as
+    portbench's predict_kernel_roofline reads them), added; None when the
+    profiler saw none."""
+    spans = {k: v for k, v in (by_name or {}).items()
+             if "predict" in k and "kernel" in k}
+    return None if not spans else \
+        sum(v * 1e3 / counts[k] for k, v in spans.items())
+
+
+#: phase 6's rows predicted alone on the tc body at CLI_CHUNK, held
+#: bitwise to the batch: one tile, one row, the last tile, and every row
+#: but the first (each row in another place of its tile, the last tile
+#: ragged)
+CHUNK_ALONE = (slice(0, 64), slice(4097, 4098), slice(CLI_CHUNK - 64,
+                                                      CLI_CHUNK),
+               slice(1, CLI_CHUNK))
+
+
+def check_cli_chunk(name, runs, args, kw):
+    """At the CLI's chunk: the route ("kernel") and each body held to the
+    plain version at TOL, the route bitwise the tc body and counted in
+    TC_F32_LAUNCHES, and CHUNK_ALONE's rows alone on the tc body bitwise
+    the batch's. Returns the largest |tc - warp| of each output."""
+    from qfa_tpu_torch.ops import infer_kernel
+    from qfa_tpu_torch.ops.infer_kernel import _fused_predict_body, _route
+
+    check(_route(*args[2:4]) == "tc",
+          f"{name}: the route does not take the tc body at CLI_CHUNK")
+    want = runs["plain"]()
+    before = infer_kernel.TC_F32_LAUNCHES, infer_kernel.WARP_LAUNCHES
+    got = {"kernel": runs["kernel"]()}
+    torch.cuda.synchronize()
+    check((infer_kernel.TC_F32_LAUNCHES - before[0],
+           infer_kernel.WARP_LAUNCHES - before[1]) == (1, 0),
+          f"{name}: the routed call was not counted in TC_F32_LAUNCHES")
+    for body in ("warp body", "tc body"):
+        got[body] = runs[body]()
+    torch.cuda.synchronize()
+    for body, out in got.items():
+        compare(f"{name} {body}", out, want, TOL)
+    check_bitwise(f"{name}: the route against the tc body", got["kernel"],
+                  got["tc body"])
+    for rows in CHUNK_ALONE:
+        alone = _fused_predict_body(
+            "tc", *args[:2], *(t[rows].contiguous() for t in args[2:]),
+            **kw)
+        check_bitwise(f"{name}: rows {rows.start}-{rows.stop - 1} alone on "
+                      "the tc body", alone, rows_of(got["tc body"], rows))
+    return {field: float((a - b).abs().max())
+            for field, a, b in zip(got["tc body"]._fields, got["tc body"],
+                                   got["warp body"]) if a is not None}
+
+
 def phase_times(device, reps=5):
-    """Kernel and plain times of the derived layout (the CLI's) at each of
-    PREDICT_SIZES, full output and stats_only: {(n, stats_only): {...}}."""
+    """Kernel and plain times of the derived layout (the CLI's) at SDSS
+    width at each of PREDICT_SIZES and at DESI width at CLI_CHUNK, full
+    output and stats_only: the route ("kernel", ``fused_predict``), and at
+    CLI_CHUNK each body by name ("warp body": predict.cu, "tc body":
+    predict_tc.cu's float32 instantiation), each of them there first held
+    to the plain version (check_cli_chunk): {(width, n, stats_only):
+    {...}}."""
     from qfa_tpu_torch.data.grid import make_grid
     from qfa_tpu_torch.ops.common import loglam_row, zq_column
-    from qfa_tpu_torch.ops.infer_kernel import fused_predict, fused_predict_plain
+    from qfa_tpu_torch.ops.infer_kernel import (
+        _fused_predict_body,
+        fused_predict,
+        fused_predict_plain,
+    )
 
-    grid = make_grid(**SDSS)
-    params, mu = seeded_params(grid, device)
-    flux, error, mask, zq = draw_spectra(params, mu, grid, PREDICT_SIZES[0],
-                                         SEED + 3)
-    flux, error = flux * mask, error * mask
-    zqc = zq_column(zq)
-    kw = dict(loglam=loglam_row(grid.wav, device=device), derive_zabs=True)
     out = {}
-    for n in PREDICT_SIZES:
-        args = (params, mu, flux[:n].contiguous(), error[:n].contiguous(),
-                zqc[:n].contiguous())
-        for stats_only in (False, True):
-            runs = {
-                "plain": lambda: fused_predict_plain(
-                    *args, stats_only=stats_only, **kw),
-                "kernel": lambda: fused_predict(*args, stats_only=stats_only,
-                                                **kw),
-            }
-            t = turns(runs, reps)
-            t["bound"] = predict_bound(grid, n, stats_only)
-            # the kernel's own span, without the wrapper's host time that
-            # a lone call's CUDA events also hold at small n
-            _, by_name, _, _, counts = profile_run(
-                lambda: [runs["kernel"]() for _ in range(PROFILED_CALLS)])
-            spans = {k: v for k, v in (by_name or {}).items()
-                     if re.search(r"predict(_tc)?_kernel", k)}
-            t["device"] = None if not spans else \
-                sum(spans.values()) * 1e3 / sum(counts[k] for k in spans)
-            out[n, stats_only] = t
+    for label, grid_kw, sizes in (("SDSS", SDSS, PREDICT_SIZES),
+                                  ("DESI", DESI, (CLI_CHUNK,))):
+        grid = make_grid(**grid_kw)
+        params, mu = seeded_params(grid, device)
+        flux, error, mask, zq = draw_spectra(params, mu, grid, sizes[0],
+                                             SEED + 3)
+        flux, error = flux * mask, error * mask
+        zqc = zq_column(zq)
+        kw = dict(loglam=loglam_row(grid.wav, device=device),
+                  derive_zabs=True)
+        for n in sizes:
+            args = (params, mu, flux[:n].contiguous(), error[:n].contiguous(),
+                    zqc[:n].contiguous())
+            for stats_only in (False, True):
+                k = dict(stats_only=stats_only, **kw)
+                runs = {
+                    "plain": lambda: fused_predict_plain(*args, **k),
+                    "kernel": lambda: fused_predict(*args, **k),
+                }
+                if n == CLI_CHUNK:
+                    for body in ("warp", "tc"):
+                        runs[f"{body} body"] = (
+                            lambda body=body: _fused_predict_body(
+                                body, *args, **k))
+                    name = (f"phase 6 {label} width, {n} spectra, "
+                            f"{'stats_only' if stats_only else 'full output'}")
+                    gap = check_cli_chunk(name, runs, args, k)
+                    say(f"{name}: the route, the warp body and the tc body "
+                        "within TOL of the plain version; the route bitwise"
+                        " the tc body; rows " + ", ".join(
+                            f"{r.start}-{r.stop - 1}" for r in CHUNK_ALONE)
+                        + " alone on the tc body bitwise the batch; largest "
+                        "|tc - warp| " + " ".join(
+                            f"{f}={v!r}" for f, v in gap.items()))
+                t = turns(runs, reps)
+                t["bound"] = predict_bound(grid, n, stats_only)
+                # the kernels' own spans, without the wrapper's host time
+                # that a lone call's CUDA events also hold at small n
+                for name in [r for r in runs if r != "plain"]:
+                    _, by_name, _, _, counts = profile_run(
+                        lambda: [runs[name]() for _ in
+                                 range(PROFILED_CALLS)])
+                    t[f"device {name}"] = device_ms_per_call(by_name, counts)
+                out[label, n, stats_only] = t
+        del flux, error, mask, zq, zqc
+    return out
+
+
+def phase_route_crossover(device, reps=5):
+    """Device ms per call of each body on float32 planes (each timed call
+    queued behind another, CUDA events) at both widths, at each of
+    ROUTE_SIZES, full output and stats_only, in turns: the readings that
+    set ``infer_kernel.TC_MIN_ROWS``. Returns {(width, n, stats_only):
+    {"warp": ms, "tc": ms, "route": the body fused_predict runs}}."""
+    from qfa_tpu_torch.data.grid import make_grid
+    from qfa_tpu_torch.ops.common import loglam_row, zq_column
+    from qfa_tpu_torch.ops.infer_kernel import _fused_predict_body, _route
+
+    out = {}
+    for label, grid_kw in (("SDSS", SDSS), ("DESI", DESI)):
+        grid = make_grid(**grid_kw)
+        params, mu = seeded_params(grid, device)
+        n0 = ROUTE_SIZES[-1]
+        flux, error, mask, zq = draw_spectra(params, mu, grid, n0, SEED + 6)
+        flux, error = flux * mask, error * mask
+        zqc = zq_column(zq)
+        kw = dict(loglam=loglam_row(grid.wav, device=device),
+                  derive_zabs=True)
+        for n, stats_only in itertools.product(ROUTE_SIZES, (False, True)):
+            args = (params, mu, flux[:n], error[:n], zqc[:n])
+            fns = {body: (lambda body=body: _fused_predict_body(
+                body, *args, stats_only=stats_only, **kw))
+                for body in ("warp", "tc")}
+            samples = {body: [] for body in fns}
+            for order in (("warp", "tc"), ("tc", "warp")):
+                for body in order:
+                    samples[body].append(time_cuda_queued(fns[body], reps))
+            out[label, n, stats_only] = {
+                b: statistics.median(v) for b, v in samples.items()}
+            out[label, n, stats_only]["route"] = _route(flux[:n], error[:n])
+        del flux, error, mask, zq, zqc
     return out
 
 
@@ -1114,8 +1250,8 @@ def phase_bf16_times(device, reps=5):
                 "tc body, bf16 planes": lambda: fused_predict(*a16, **k16),
                 "warp body, bf16 planes": lambda: _fused_predict_body(
                     "warp", *a16, **k16),
-                "float32 kernel, upcast": lambda: fused_predict(
-                    *a32, stats_only=stats_only, **kw),
+                "float32 kernel, upcast": lambda: _fused_predict_body(
+                    "warp", *a32, stats_only=stats_only, **kw),
             }
             t = turns(runs, reps)
             t["bounds"] = {
@@ -3117,6 +3253,7 @@ def phase_sweep(device, smi):
     from qfa_tpu_torch.ops.common import loglam_row
     from qfa_tpu_torch.ops.infer_kernel import (
         _fused_predict_body,
+        _route,
         fused_predict,
         fused_predict_plain,
     )
@@ -3170,6 +3307,7 @@ def phase_sweep(device, smi):
     launches, bf16_launches = infer_kernel.LAUNCHES, \
         infer_kernel.BF16_LAUNCHES
     tc, warp = infer_kernel.TC_LAUNCHES, infer_kernel.WARP_LAUNCHES
+    tc32 = infer_kernel.TC_F32_LAUNCHES
     others = other_counts(infer_kernel)
     # ... to here
     path_s = time.perf_counter() - t0
@@ -3178,16 +3316,18 @@ def phase_sweep(device, smi):
           f"phase 18 made 6 prediction-kernel calls, 3 of them bfloat16, "
           f"and no other kernel's; the counts read {launches}, "
           f"{bf16_launches} and {others}")
-    check(tc == 4 and warp == 2,
-          f"phase 18's path ran the tensor-core body 4 times (the sweep, "
-          f"its float32 witness, the slice, the selected spectra) and "
-          f"predict.cu twice (the float32 originals); the counts read "
-          f"{tc} and {warp}")
+    want = 4 + 2 * (_route(kf, ke) == "tc")
+    check(tc == want and warp == 6 - want and tc32 == want - 3,
+          f"phase 18's path ran the tensor-core body {want} times (the "
+          f"sweep, its float32 witness, the slice, the selected spectra"
+          f"{' and the float32 originals, routed by N' if want == 6 else ''})"
+          f", {want - 3} of them on float32 planes, and predict.cu "
+          f"{6 - want} times; the counts read {tc}, {tc32} and {warp}")
 
     check_bitwise("sweep: bfloat16 planes against the tc body's float32 "
                   "instantiation on their upcast", sweep, sweep32)
-    old32 = fused_predict(params, mu, *twin, zqc, None, stats_only=True,
-                          **kw)
+    old32 = _fused_predict_body("warp", params, mu, *twin, zqc, None,
+                                stats_only=True, **kw)
     err_old, detail_old = compare(
         "sweep against predict.cu's float32 kernel on the upcast", sweep,
         old32, TOL)
@@ -3259,7 +3399,7 @@ def phase_sweep(device, smi):
             "warp body (predict.cu), the same bfloat16 planes": sweep_call(
                 "warp", (flux, error)),
             "predict.cu's float32 kernel, their float32 upcast": sweep_call(
-                None, twin),
+                "warp", twin),
             "tc body's float32 instantiation, the upcast": sweep_call(
                 "tc", twin)}
     t = turns(runs, SWEEP_REPS)
@@ -3276,10 +3416,12 @@ def phase_sweep(device, smi):
             f"{b_ms:.4f} ms by {b_by})")
     del twin, runs
     bf_k = (flux[k], error[k])
-    pairs = {}
+    pairs, bodies = {}, {}
     for pname, planes, body in (("float32", (kf, ke), None),
+                                ("float32, warp body", (kf, ke), "warp"),
                                 ("bfloat16", bf_k, None),
                                 ("bfloat16, warp body", bf_k, "warp")):
+        bodies[pname] = body or _route(*planes)
         for oname, odt in (("float32", torch.float32), ("bfloat16", bf)):
             pairs[pname, oname] = (
                 lambda planes=planes, odt=odt, body=body: _fused_predict_body(
@@ -3291,20 +3433,17 @@ def phase_sweep(device, smi):
         pb, ob = (2 if pname.startswith("bfloat16") else 4), \
             (2 if oname == "bfloat16" else 4)
         b = predict_bound(grid, SWEEP_KEEP, plane_bytes=pb, out_bytes=ob,
-                          tensor_cores=pname == "bfloat16")
+                          tensor_cores=bodies[pname] == "tc")
         _, by_name, _, _, counts = profile_run(
             lambda fn=pairs[pname, oname]: [fn() for _ in
                                             range(PROFILED_CALLS)])
-        spans = {n: v for n, v in (by_name or {}).items()
-                 if re.search(r"predict(_tc)?_kernel", n)}
-        dev = None if not spans else \
-            sum(spans.values()) * 1e3 / sum(counts[n] for n in spans)
+        dev = device_ms_per_call(by_name, counts)
         out[pname, oname] = dict(ms=ms, device=dev, bound=b)
         dev_s = "device time not measured (torch.profiler saw no kernel)" \
-            if dev is None else (f"device {dev!r} ms per launch "
+            if dev is None else (f"device {dev!r} ms per call "
                                  f"(torch.profiler, {b[0] / dev:.3f} of "
                                  "its bound)")
-        body = "predict.cu" if pname != "bfloat16" else "the tc body"
+        body = "predict.cu" if bodies[pname] == "warp" else "the tc body"
         say(f"  full output ({smi}), {SWEEP_KEEP} spectra, {pname} planes "
             f"({body}), {oname} continuum/std: {ms!r} ms per call (CUDA "
             "events, in turns; "
@@ -4461,8 +4600,9 @@ def main(argv=None):
                 f"{m} {b} B, {k}" for m, (b, k) in r["modes"].items()))
     for (nh, ptype), r in tc_build_report(_build.load_library(),
                                           _build.build_log()).items():
-        say(f"  predict_tc_kernel nh={nh}, {ptype} flux/error"
-            f"{' (the exact witness)' if ptype == 'float32' else ''}: "
+        routed = " (float32 calls of TC_MIN_ROWS rows or more; the exact " \
+            "witness)" if ptype == "float32" else ""
+        say(f"  predict_tc_kernel nh={nh}, {ptype} flux/error{routed}: "
             f"{r['registers']} registers, {r['spill']} spill stores/loads "
             "(bytes); dynamic shared memory and resident blocks per SM: "
             + ", ".join(f"{m} {b} B, {k}"
@@ -4511,21 +4651,35 @@ def main(argv=None):
               "the predict path launched a training kernel")
     if want(6):
         times = phase_times(device)
-        for (n, stats_only), t in times.items():
+        for (label, n, stats_only), t in times.items():
             mode = "stats_only" if stats_only else "full output"
             b_ms, b_by, b_bytes = t["bound"]
-            dev = "device time not measured (torch.profiler saw no " \
-                "kernel)" if t["device"] is None else (
-                    f"device {t['device']!r} ms per launch (torch.profiler,"
-                    f" {b_bytes / t['device'] / 1e6:.1f} GB/s, "
-                    f"{b_ms / t['device']:.3f} of its bound)")
-            say(f"phase 6 times ({smi}), SDSS width, derived layout, {n} "
-                f"spectra, {mode}: kernel {t['kernel']!r} ms per call "
-                f"(CUDA events; {n / t['kernel'] * 1e3:.0f} spectra/s, "
-                f"{b_bytes / t['kernel'] / 1e6:.1f} GB/s, "
-                f"{b_ms / t['kernel']:.3f} of its bound {b_ms:.4f} ms by "
-                f"{b_by}); {dev}; plain {t['plain']!r} ms "
-                f"({n / t['plain'] * 1e3:.0f} spectra/s)")
+            parts = []
+            for name in [r for r in t if r not in ("plain", "bound")
+                         and not r.startswith("device")]:
+                d = t[f"device {name}"]
+                dev = "device time not measured (torch.profiler saw no " \
+                    "kernel)" if d is None else (
+                        f"device {d!r} ms per call (torch.profiler, "
+                        f"{b_bytes / d / 1e6:.1f} GB/s, {b_ms / d:.3f} of "
+                        "its bound)")
+                ms = t[name]
+                parts.append(
+                    f"{name} {ms!r} ms per call (CUDA events; "
+                    f"{n / ms * 1e3:.0f} spectra/s, "
+                    f"{b_bytes / ms / 1e6:.1f} GB/s, {b_ms / ms:.3f} of its "
+                    f"bound {b_ms:.4f} ms by {b_by}); {dev}")
+            say(f"phase 6 times ({smi}), {label} width, derived layout, {n} "
+                f"spectra, {mode}: " + "; ".join(parts) + f"; plain "
+                f"{t['plain']!r} ms ({n / t['plain'] * 1e3:.0f} spectra/s)")
+        cross = phase_route_crossover(device)
+        for (label, n, stats_only), t in cross.items():
+            say(f"phase 6 route ({smi}), {label} width, float32 planes, {n} "
+                f"spectra, {'stats_only' if stats_only else 'full output'}:"
+                f" device ms per call (queued CUDA events, in turns): warp "
+                f"body {t['warp']!r}, tc body {t['tc']!r} (tc/warp "
+                f"{t['tc'] / t['warp']:.3f}; the route takes the "
+                f"{t['route']} body)")
         for (n, stats_only), t in phase_bf16_times(device).items():
             bnd = t.pop("bounds")
             mode = "stats_only" if stats_only else \
@@ -4806,7 +4960,7 @@ def main(argv=None):
             "line, no result")
         return 0
     b_epoch, b_step, b_window = bounds(grid, tn, n_batches, tb, step_b)
-    t_pred = times[PREDICT_SIZES[0], False]
+    t_pred = times["SDSS", PREDICT_SIZES[0], False]
 
     def entry(name, src, replaces, launches, err, ms, plain_ms, bnd,
               library_ms=None):
@@ -4817,7 +4971,8 @@ def main(argv=None):
                 "library_ms": library_ms}
 
     say(json.dumps({"kernels": [
-        entry("predict_kernel", "qfa_tpu_torch/csrc/predict.cu",
+        entry("predict_kernel", "qfa_tpu_torch/csrc/predict.cu and "
+              "predict_tc.cu (routed by N)",
               "qfa_tpu/ops/infer_kernel.py:90", main_launches, worst,
               t_pred["kernel"], t_pred["plain"], t_pred["bound"][:2]),
         entry("epoch_kernel", "qfa_tpu_torch/csrc/epoch.cu",

@@ -69,44 +69,41 @@ _TC_PRODUCTS = _between("predict_tc.cu", "#pragma unroll\n    for (int nt = 0;"
                         " nt < S::TT; ++nt) {\n      float part[4]",
                         "      for (int e = 0; e < 4; ++e) acc[nt][e] += "
                         "part[e];\n    }\n")
-_TC_LOOP = _between("predict_tc.cu", "    for (int c = 0; c < n_chunks; ++c, "
-                    "++s) {\n      const float* st = begin(s);\n      pass1",
-                    "    emit<NH>(a, work, tile, warp, lane);\n")
 #: the tc body with thread 0 of each block adding its clock's cycles in
-#: each part of the tile loop
+#: each part of pass 1's item loop (in g_tc_phase[block])
 _TC_STAMPS = [
     ("namespace {\n", "namespace {\n__device__ unsigned long long "
      "g_tc_phase[4096][4];\n"),
-    (_TC_LOOP, """    unsigned long long ph[4] = {0, 0, 0, 0};
-    for (int c = 0; c < n_chunks; ++c, ++s) {
-      const unsigned long long t0 = clock64();
-      const float* st = begin(s);
-      const unsigned long long t1 = clock64();
-      pass1<NH, P>(a, L, st, rows, c, h, lane, tau0, c0f, beta, acc, sq, sm);
-      ph[0] += t1 - t0;
-      ph[1] += clock64() - t1;
-    }
-    const unsigned long long t2 = clock64();
-    finish<NH>(a, work, tile, warp, lane, full, acc, sq, sm);
-    const unsigned long long t3 = clock64();
-    ph[2] += t3 - t2;
-    if (full) {
-      __syncthreads();
-      emit<NH>(a, work, tile, warp, lane);
-      ph[3] += clock64() - t3;
-    }
-    if (threadIdx.x == 0)
-      for (int i = 0; i < 4; ++i) g_tc_phase[blockIdx.x % 4096][i] += ph[i];
-"""),
+    ("  int stage = 0;\n", "  int stage = 0;\n  unsigned long long ph[4] = "
+     "{0, 0, 0, 0};\n"),
+    ("      cp_async_wait<0>();\n      __syncthreads();\n      if (c == "
+     "c_first)", "      const unsigned long long t0 = clock64();\n      "
+     "cp_async_wait<0>();\n      __syncthreads();\n      if (c == c_first)"),
+    ("      cp_async_commit();\n      pass1<NH, P>(", "      cp_async_commit()"
+     ";\n      const unsigned long long t1 = clock64();\n      ph[0] += t1 -"
+     " t0;\n      pass1<NH, P>("),
+    ("      stage ^= 1;\n    }\n", "      stage ^= 1;\n      ph[1] += "
+     "clock64() - t1;\n    }\n    const unsigned long long t2 = clock64();"
+     "\n"),
+    ("    if (last_to_arrive(a.counters + tile, a.n_parts, &last))\n      "
+     "finish<NH>(a, work, tile, full);\n", "    const bool fin = "
+     "last_to_arrive(a.counters + tile, a.n_parts, &last);\n    const "
+     "unsigned long long t3 = clock64();\n    ph[2] += t3 - t2;\n    if "
+     "(fin) {\n      finish<NH>(a, work, tile, full);\n      ph[3] += "
+     "clock64() - t3;\n    }\n"),
+    ("  }\n  cp_async_wait<0>();\n}\n", "  }\n  if (threadIdx.x == 0)\n    "
+     "for (int i = 0; i < 4; ++i) g_tc_phase[blockIdx.x % 4096][i] += "
+     "ph[i];\n  cp_async_wait<0>();\n}\n"),
     ('extern "C" {\n', 'extern "C" {\nint qfa_tc_stamps(void* host, int '
      'reset) {\n  static unsigned long long zero[4096][4];\n  return '
      'static_cast<int>(reset ? cudaMemcpyToSymbol(g_tc_phase, zero, '
      'sizeof(zero)) : cudaMemcpyFromSymbol(host, g_tc_phase, '
      'sizeof(zero)));\n}\n'),
 ]
-#: the parts the stamps time: per pass-1 step, then per tile
-PHASES = ("wait for the step's copies + barrier", "pass 1 (chain and "
-          "products)", "finish", "pass 2")
+#: the parts the stamps time: per pass-1 step, per item, per finish
+PHASES = ("wait for the step's copies, barrier and the next step's copies",
+          "pass 1 (chain and products)", "the part's sums stored and the "
+          "arrival", "finish")
 
 #: body -> name -> (what it changes, [(text of the source, replacement)])
 VARIANTS = {
@@ -149,21 +146,18 @@ VARIANTS = {
         "lb3": ("kMinBlocks 3: at most 80 registers",
                 [("constexpr int kMinBlocks = 2;",
                   "constexpr int kMinBlocks = 3;")]),
-        "s3": ("a ring of three stages", [("constexpr int kStages = 2;",
-                                           "constexpr int kStages = 3;")]),
-        "lb3_s3": ("kMinBlocks 3 and a ring of three stages",
-                   [("constexpr int kMinBlocks = 2;",
-                     "constexpr int kMinBlocks = 3;"),
-                    ("constexpr int kStages = 2;",
-                     "constexpr int kStages = 3;")]),
+        "parts2": ("at most 2 parts of the pixel axis",
+                   [("constexpr int kParts = 4;",
+                     "constexpr int kParts = 2;")]),
         "m128": ("tiles of 128 spectra (512 threads)",
                  [("constexpr int kM = 64;", "constexpr int kM = 128;"),
                   ("constexpr int kMinBlocks = 2;",
                    "constexpr int kMinBlocks = 1;")]),
         "shell": ("all of pass 1's work: the ring's copies, barriers and "
                   "the finish alone", [(
-                      "      pass1<NH, P>(a, L, st, rows, c, h, lane, tau0, "
-                      "c0f, beta, acc, sq, sm);\n", "")]),
+                      "      pass1<NH, P>(a, L, smem + stage * L.stage, rows, "
+                      "c, h, lane, tau0, c0f,\n                   beta, acc, "
+                      "sq, sm);\n", "")]),
         "no_planes": ("the flux and error rows' copies", [(
             "  copy_row(reinterpret_cast<P*>(st + L.flux + r * L.slot),\n"
             "           static_cast<const P*>(a.flux) + rb, len, lane, "
@@ -218,9 +212,9 @@ def ptxas_report(log: str) -> str:
 
 
 def print_stamps(lib, fn, label) -> None:
-    """The tc body's clock cycles per part of its tile loop in one call of
-    ``fn``, summed over the blocks' thread 0: per step (pass 1's chunks)
-    and per tile."""
+    """The tc body's clock cycles per part of pass 1's item loop in one
+    call of ``fn``, summed over the blocks' thread 0: per step (pass 1's
+    chunks), per item (a tile's part) and per tile."""
     import ctypes
 
     import numpy as np
@@ -236,12 +230,14 @@ def print_stamps(lib, fn, label) -> None:
     n = out.ll.shape[0]
     tiles = -(-n // 64)
     steps = tiles * -(-1913 // lib.qfa_predict_tc_chunk())
+    part_px = ctypes.c_int()
+    items = tiles * lib.qfa_predict_tc_parts(1913, ctypes.byref(part_px))
+    per = ((steps, "step"), (steps, "step"), (items, "item"), (tiles, "tile"))
     tot = buf.sum(axis=0).astype(np.float64)
     blocks = int((buf.sum(axis=1) > 0).sum())
-    print(f"  stamps, {label}: {blocks} blocks, {tiles} tiles; cycles "
-          + ", ".join(f"{PHASES[i]} {tot[i] / (steps if i < 2 else tiles):.0f}"
-                      f" per {'step' if i < 2 else 'tile'}"
-                      for i in range(4)), flush=True)
+    print(f"  stamps, {label}: {blocks} blocks, {tiles} tiles, {items} items;"
+          " cycles " + ", ".join(f"{PHASES[i]} {tot[i] / per[i][0]:.0f} per "
+                                 f"{per[i][1]}" for i in range(4)), flush=True)
 
 
 def main(argv=None) -> int:

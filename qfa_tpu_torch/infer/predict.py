@@ -112,7 +112,11 @@ def predict_dataset_fused(
 ) -> PredictResult | None:
     """Predict a host dataset through the fused prediction kernel, one
     launch per ``chunk`` spectra on the parameters' device (the tail chunk
-    is just shorter: the kernel needs no divisibility).
+    is just shorter: the kernel needs no divisibility). On CUDA a float32
+    chunk of at least ``ops.infer_kernel.TC_MIN_ROWS`` spectra runs
+    ``csrc/predict_tc.cu``; a shorter tail chunk, or a rank's share of a
+    chunk on a mesh, runs ``csrc/predict.cu``, whose outputs differ from
+    the other body's in the last bits.
 
     The absorber redshifts ship as the (N, 2) zq column (rebuilt
     in-kernel), and the mask plane is left out when the dataset is

@@ -73,7 +73,7 @@ SIGNATURES = {
             _P, _P, _I,  # flux, error, planes_bf16
             _P, _I, _I,  # zabs, zabs_ld, zabs_bf16
             _P, _I,  # mask, mask_bf16
-            _P, _P, _P,  # mu, F, table
+            _P, _P, _P,  # mu, F, scratch
             _P, _P, _P,  # psi, omega, loglam
             _P, _P, _P,  # tau0, c0, beta (device scalars)
             _F, _F, _F,  # law_a, law_b, law_c
@@ -92,6 +92,12 @@ SIGNATURES = {
         ctypes.c_int,
     ),
     "qfa_predict_tc_chunk": ([], ctypes.c_int),
+    "qfa_predict_tc_parts": ([_I, _P], ctypes.c_int),  # npix, part_px
+    # (int output)
+    "qfa_predict_tc_scratch_len": ([_I, _I, _I, _I], ctypes.c_longlong),
+    # n, npix, nh, full
+    "qfa_predict_tc_table": ([_P, _I, _I, _P, _I, _P], ctypes.c_int),
+    # F, npix, nh, table, device, stream
     "qfa_predict_occupancy": (
         [_I, _I, _I, _I, _I, _I, _P, _P],  # nh, planes_bf16, flags,
         # derive_mask, derive_zabs, device, smem bytes, blocks per SM (int

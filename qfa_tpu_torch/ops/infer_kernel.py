@@ -7,12 +7,14 @@ continuum ``F hmean + mu`` and its uncertainty ``sqrt(diag(F hcov F^T))``.
 
 * on a CUDA tensor, in a hand-written CUDA kernel (the port of
   ``qfa_tpu.ops.infer_kernel._predict_kernel``), built at first use by
-  :mod:`._build`: bfloat16 flux and error planes go to
-  ``csrc/predict_tc.cu`` (tiles of 64 spectra, the products on the tensor
-  cores against the ``[tri(Gram) | F]`` table, :func:`gram_table`), float32
-  ones (a mixed pair is read as float32) to ``csrc/predict.cu`` (one warp
-  per spectrum); a launch that fails raises, and nothing falls back to the
-  other body or to the plain version;
+  :mod:`._build`: bfloat16 flux and error planes, and float32 ones (a
+  mixed pair is read as float32) in calls of at least
+  :data:`TC_MIN_ROWS` spectra, go to ``csrc/predict_tc.cu`` (tiles of 64
+  spectra, each tile's pixel axis split across blocks, the products on
+  the tensor cores against the ``[tri(Gram) | F]`` table,
+  :func:`gram_table`); smaller float32 calls go to ``csrc/predict.cu``
+  (one warp per spectrum); a launch that fails raises, and nothing falls
+  back to the other body or to the plain version;
 * on a CPU tensor, in :func:`fused_predict_plain`, the same function in
   plain torch ops — the reference the kernel is held against on the card.
 
@@ -46,7 +48,9 @@ __all__ = [
     "BF16_LAUNCHES",
     "FusedPredictOutputs",
     "LAUNCHES",
+    "TC_F32_LAUNCHES",
     "TC_LAUNCHES",
+    "TC_MIN_ROWS",
     "WARP_LAUNCHES",
     "fused_predict",
     "fused_predict_plain",
@@ -59,15 +63,25 @@ __all__ = [
 LAUNCHES = 0
 #: ... of them, the launches that read or store a bfloat16 plane
 BF16_LAUNCHES = 0
-#: ... of them, the launches of each body: ``csrc/predict_tc.cu`` (bfloat16
-#: flux and error) and ``csrc/predict.cu`` (float32 flux and error)
+#: ... of them, the launches of each body: ``csrc/predict_tc.cu`` and
+#: ``csrc/predict.cu``
 TC_LAUNCHES = 0
 WARP_LAUNCHES = 0
+#: ... of the tc body's, those on float32 flux and error
+TC_F32_LAUNCHES = 0
 _LAUNCH_LOCK = threading.Lock()
 
 #: the kernel is instantiated for 1 <= nh <= 10 (nh*nh + nh + 2 <= 128,
 #: the JAX kernel's stats-row bound)
 MAX_NH = 10
+
+#: float32 calls of at least this many spectra run the tc body, smaller
+#: ones predict.cu: the CLI's chunk, the first size at which the tc body
+#: was the faster at both widths and in both modes, on an H100 (below it
+#: its tiles of 64 spectra, in at most 4 parts of the pixel axis, fill the
+#: card's SMs in whole waves only at some sizes; PERF.md, chip_smoke.py
+#: phase 6)
+TC_MIN_ROWS = 8192
 
 
 class FusedPredictOutputs(NamedTuple):
@@ -270,14 +284,15 @@ def _tc_index(npix: int, nh: int, pad: int, device: str):
 
 
 def _tc_table(F: Tensor, pad: int) -> Tensor:
-    """The table of ``csrc/predict_tc.cu``, split into TF32 hi and lo and
-    laid out in the order of its MMA fragments: the Gram triangle padded
-    to a multiple of 8 columns, then F padded the same way (N columns in
-    all), the pixel axis padded with zero rows to a multiple of ``pad``.
-    Entry (8-pixel step k, column n, t) holds hi, hi, lo, lo of pixels
-    8 k + t and 8 k + t + 4: the columns of :func:`gram_table`, each
-    product ``F_a * F_b`` taken once per call, elementwise in plain torch
-    (ten operations; the index maps depend on the shapes only)."""
+    """The table of ``csrc/predict_tc.cu`` in plain torch (the kernel's
+    ``predict_tc_table_kernel`` builds it on the card, and is held to this
+    bitwise), split into TF32 hi and lo and laid out in the order of its
+    MMA fragments: the Gram triangle padded to a multiple of 8 columns,
+    then F padded the same way (N columns in all), the pixel axis padded
+    with zero rows to a multiple of ``pad``. Entry (8-pixel step k, column
+    n, t) holds hi, hi, lo, lo of pixels 8 k + t and 8 k + t + 4: the
+    columns of :func:`gram_table`, each product ``F_a * F_b`` taken once
+    (the index maps depend on the shapes only)."""
     npix, nh = F.shape
     ia, ib, is_hi, zero_one = _tc_index(npix, nh, pad, str(F.device))
     src = torch.cat([F.reshape(-1), zero_one])
@@ -309,11 +324,21 @@ def _as_read(params, mu, flux, error, zabs, mask, loglam, derive_zabs):
             f32_(loglam))
 
 
+def _route(flux: Tensor, error: Tensor) -> str:
+    """The CUDA body :func:`fused_predict` runs on these flux and error
+    planes: ``"tc"`` for bfloat16 ones, and for float32 ones (or a mixed
+    pair) of at least :data:`TC_MIN_ROWS` spectra; ``"warp"`` for smaller
+    float32 calls."""
+    bf16 = flux.dtype is torch.bfloat16 and error.dtype is torch.bfloat16
+    return "tc" if bf16 or flux.shape[0] >= TC_MIN_ROWS else "warp"
+
+
 def _launch(params, mu, flux, error, zabs, mask, *, law, stats_only, loglam,
             derive_zabs, out_dtype, body=None) -> FusedPredictOutputs:
-    """One launch of a CUDA body: ``"tc"`` (``csrc/predict_tc.cu``) or
-    ``"warp"`` (``csrc/predict.cu``); by default the flux/error type
-    chooses, bfloat16 the first."""
+    """One call of a CUDA body: ``"tc"`` (``csrc/predict_tc.cu``) or
+    ``"warp"`` (``csrc/predict.cu``); by default bfloat16 flux/error, and
+    float32 ones in calls of at least :data:`TC_MIN_ROWS` spectra, run the
+    first."""
     from ._build import device_and_stream, load_library
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -327,7 +352,7 @@ def _launch(params, mu, flux, error, zabs, mask, *, law, stats_only, loglam,
         # is read as float32 (exact, so the outputs are the same bits)
         flux, error = flux.float(), error.float()
     if body is None:
-        body = "tc" if flux.dtype is bf16 else "warp"
+        body = _route(flux, error)
     if body not in ("tc", "warp"):
         raise ValueError(f"no prediction body {body!r}")
     zplane = None if derive_zabs else zabs
@@ -386,24 +411,30 @@ def _launch(params, mu, flux, error, zabs, mask, *, law, stats_only, loglam,
             bf[3], index, stream)
     loglam_p = ptr(loglam if derive_zabs else None)
     if body == "tc":
-        table = _tc_table(params.F, lib.qfa_predict_tc_chunk())
-        fn, f_and_table = lib.qfa_predict_tc_f32, (ptr(params.F), ptr(table))
+        # the table, the parts' sums, the coefficients and the counters
+        scratch = torch.empty(
+            (lib.qfa_predict_tc_scratch_len(n, npix, nh, int(not stats_only)),),
+            dtype=torch.uint8, device=dev)
+        fn, f_and_scratch = lib.qfa_predict_tc_f32, (ptr(params.F),
+                                                     ptr(scratch))
     else:
-        fn, f_and_table = lib.qfa_predict_f32, (ptr(params.F),)
+        fn, f_and_scratch = lib.qfa_predict_f32, (ptr(params.F),)
     with span("qfa.fused_predict.launch"):
-        rc = fn(*planes, ptr(mu), *f_and_table, ptr(params.Psi),
+        rc = fn(*planes, ptr(mu), *f_and_scratch, ptr(params.Psi),
                 ptr(params.omega), loglam_p, *tail)
     if rc != 0:
         raise RuntimeError(
             f"CUDA prediction kernel launch failed ({body} body): error {rc} "
             f"({lib.qfa_cuda_error_string(rc).decode()})"
         )
-    global LAUNCHES, BF16_LAUNCHES, TC_LAUNCHES, WARP_LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES, TC_LAUNCHES, WARP_LAUNCHES, \
+        TC_F32_LAUNCHES
     with _LAUNCH_LOCK:
         LAUNCHES += 1
         BF16_LAUNCHES += int(any(bf))
         TC_LAUNCHES += int(body == "tc")
         WARP_LAUNCHES += int(body == "warp")
+        TC_F32_LAUNCHES += int(body == "tc" and not bf[0])
     return out
 
 
@@ -439,8 +470,9 @@ def fused_predict(
 
     Tensors on the CPU run :func:`fused_predict_plain`. Tensors on a CUDA
     device launch a CUDA kernel, or raise: contiguous, all on one
-    device. bfloat16 flux and error go to ``csrc/predict_tc.cu``, float32
-    ones to ``csrc/predict.cu``.
+    device. bfloat16 flux and error go to ``csrc/predict_tc.cu``, and
+    float32 ones too in calls of at least :data:`TC_MIN_ROWS` spectra;
+    smaller float32 calls go to ``csrc/predict.cu``.
     """
     return _fused_predict_body(
         None, params, mu, flux, error, zabs, mask, tau_which=tau_which,
@@ -453,11 +485,11 @@ def _fused_predict_body(body, params, mu, flux, error, zabs, mask=None, *,
                         tau_which="becker", stats_only=False, loglam=None,
                         derive_zabs=False, out_dtype=torch.float32):
     """:func:`fused_predict` with the CUDA body chosen: ``"tc"`` runs
-    ``csrc/predict_tc.cu`` whatever the flux/error type (on float32 planes
-    its float32 instantiation, the exact witness of the bfloat16 one),
-    ``"warp"`` runs ``csrc/predict.cu`` (on bfloat16 planes too, to time
-    it against the other); None chooses as :func:`fused_predict` does.
-    CPU tensors run the plain version."""
+    ``csrc/predict_tc.cu`` whatever the flux/error type and N (on float32
+    planes its float32 instantiation, the exact witness of the bfloat16
+    one), ``"warp"`` runs ``csrc/predict.cu`` whatever they are (on
+    bfloat16 planes too, to time it against the other); None chooses as
+    :func:`fused_predict` does. CPU tensors run the plain version."""
     with span("qfa.fused_predict"):
         _check_args(params, flux, error, zabs, mask, loglam, derive_zabs)
         params, mu, flux, error, zabs, mask, loglam = _as_read(

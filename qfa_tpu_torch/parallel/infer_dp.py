@@ -8,7 +8,12 @@ compute: prediction couples no spectra. The outputs are gathered to rank
 0, packed into one flat float32 vector per rank (one ``gather``), and
 rank 0 returns the whole batch's, as JAX's call returns the global
 arrays; the other ranks return None. A spectrum's outputs are computed
-exactly as in a single-device call.
+exactly as in a single-device call of its rank's rows: on CUDA, float32
+planes take the body that call's size picks
+(``ops.infer_kernel.TC_MIN_ROWS``), so a batch that a single device
+would send to ``csrc/predict_tc.cu`` may run ``csrc/predict.cu`` on each
+rank, and its outputs then differ in the last bits (within the kernel's
+tolerances of the plain version).
 """
 
 from __future__ import annotations

@@ -49,7 +49,8 @@ BF16_CASES = {"float32": (), "bf16 flux/error": ("flux", "error"),
 FLOAT32_READ_CASES = ("float32", "bf16 flux")
 #: the bf16 cases whose flux and error are both bfloat16: the tc body's
 TC_CASES = [k for k, v in BF16_CASES.items() if {"flux", "error"} <= set(v)]
-COUNTS = ("LAUNCHES", "BF16_LAUNCHES", "TC_LAUNCHES", "WARP_LAUNCHES")
+COUNTS = ("LAUNCHES", "BF16_LAUNCHES", "TC_LAUNCHES", "WARP_LAUNCHES",
+          "TC_F32_LAUNCHES")
 
 
 @pytest.fixture(scope="module")

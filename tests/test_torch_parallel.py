@@ -14,8 +14,11 @@ ones. Tolerances, and why:
 * against the port's own single-device epoch at one rank: bitwise (the
   window's pending buffer summed over one rank is the batch's own, and
   goes through the same update);
-* ``fused_predict_dp`` against ``fused_predict``: bitwise (each row's
-  outputs are computed alike in any batch).
+* ``fused_predict_dp`` against ``fused_predict``: bitwise (at one rank
+  the rank's share is the whole batch, the same call; at more ranks on
+  CUDA a rank's float32 share may be too small for the body the whole
+  batch takes, ``ops.infer_kernel.TC_MIN_ROWS``, and differ from it in
+  the last bits).
 """
 
 import glob

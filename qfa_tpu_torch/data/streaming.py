@@ -29,6 +29,7 @@ from ..utils.device import resolve_device
 from .batch import SpectraBatch
 from .grid import WavelengthGrid
 from .loader import SpectraDataset, as_f32, make_residuals
+from .shuffle import local_batch
 
 __all__ = ["HostResiduals", "make_host_residuals", "stream_batches"]
 
@@ -126,9 +127,7 @@ def stream_batches(
     ``P('data')`` puts them on device ``d``. ``B`` must divide by ``D``.
     """
     if sharding is not None:
-        if batch_size % sharding.size:
-            raise ValueError(f"batch size {batch_size} not divisible by the "
-                             f"{sharding.size}-device mesh")
+        local_batch(batch_size, sharding.size)
         device = sharding.device
     dev = resolve_device(device)
     n = host.size

@@ -1,5 +1,6 @@
 """Shared pieces of the kernel wrappers: tau-law coefficients, the zq
-column and the loglam row, and the lower-triangle index helpers."""
+column and the loglam row, the lower-triangle index helpers, and the Adam
+schedule in float32."""
 
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ __all__ = [
     "zq_column",
     "tri_pairs",
     "tri_idx",
+    "schedule_f32",
 ]
 
 #: Power-law form ``a * (1+z)^b + c`` covering every supported tau law
@@ -86,3 +88,22 @@ def tri_idx(a: int, b: int) -> int:
     """Packed index of ``(a, b)`` in :func:`tri_pairs` order (symmetric)."""
     a, b = (a, b) if a >= b else (b, a)
     return a * (a + 1) // 2 + b
+
+
+def schedule_f32(
+    epoch: int,
+    *,
+    learning_rate: float,
+    decay_alpha: float,
+    decay_step: int,
+    b1: float,
+    b2: float,
+) -> tuple[np.float32, np.float32, np.float32]:
+    """``(lr, bc1, bc2)`` of counter ``epoch`` in float32:
+    ``lr = lr0 * alpha ** ((epoch + 1) // step)``, ``bc1 = 1 - b1 ** t``,
+    ``bc2 = 1 - b2 ** t`` with ``t = epoch + 1``."""
+    f32 = np.float32
+    t = f32(epoch + 1)
+    decay = f32(decay_alpha) ** f32((epoch + 1) // decay_step)
+    return f32(f32(learning_rate) * decay), f32(1.0) - f32(b1) ** t, \
+        f32(1.0) - f32(b2) ** t

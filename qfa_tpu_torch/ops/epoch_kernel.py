@@ -15,7 +15,7 @@ permutation per epoch (``tile_perm``; batch ``i`` of epoch ``e`` is the
 the first epoch's Adam counter, and the optimizer's hyper-parameters.
 Within a batch every row sees the same parameters; the update runs at the
 batch's end. The learning rate and bias corrections of each epoch of the
-call come from :func:`qfa_tpu_torch.train.adam.schedule_f32` (float32,
+call come from :func:`~qfa_tpu_torch.ops.common.schedule_f32` (float32,
 counter ``epoch + k``).
 
 Layouts: an explicit mask plane or a mask derived as ``error > 0``; a zabs
@@ -65,7 +65,7 @@ from ..linalg import smallchol
 from ..linalg.lowrank import LOG_2PI
 from ..models.params import ParamBounds, QFAParams
 from ..utils.profiling import span
-from .common import ZQ_WIDTH, tau_law_abc, tri_idx, tri_pairs
+from .common import ZQ_WIDTH, schedule_f32, tau_law_abc, tri_idx, tri_pairs
 
 Tensor = torch.Tensor
 
@@ -76,8 +76,10 @@ __all__ = [
     "SyncEpochOutputs",
     "WINDOW_LAUNCHES",
     "WindowCalls",
+    "epoch_loss",
     "fused_train_epoch",
     "fused_train_epoch_plain",
+    "kernel_kwargs",
     "pending_len",
     "upload",
 ]
@@ -265,8 +267,6 @@ def _schedule_rows(epoch, n_epochs, learning_rate, decay_alpha, decay_step,
                    b1, b2) -> np.ndarray:
     """(n_epochs, 3) float32 rows ``[lr, bc1, bc2]`` for counters
     ``epoch + k``."""
-    from ..train.adam import schedule_f32
-
     return np.array([
         schedule_f32(int(epoch) + k, learning_rate=learning_rate,
                      decay_alpha=decay_alpha, decay_step=decay_step,
@@ -826,8 +826,7 @@ class WindowCalls:
                  derive_zabs=False, learning_rate=1e-3, weight_decay=0.1,
                  decay_alpha=0.9, decay_step=10, b1=0.9, b2=0.999,
                  eps=1e-8, bounds=ParamBounds(), tau_which="becker",
-                 reference_norm=True, mxu_bf16=False, bwd_wide=False):
-        del bwd_wide  # one backward form; see the module docstring
+                 reference_norm=True, mxu_bf16=False):
         # a one-batch window's geometry checks every shape
         geo = _check_args(params, m, v, delta, error, zabs,
                           torch.zeros((tiles_per_batch,), dtype=torch.int64),
@@ -1038,3 +1037,24 @@ def fused_train_epoch(
         law = tau_law_abc(kw.pop("tau_which"))
         return _launch(params, m, v, delta, error, zabs, mask, loglam, geo,
                        law=law, pending=pending, **kw)
+
+
+def kernel_kwargs(config, loglam) -> dict:
+    """The keyword arguments of :func:`fused_train_epoch` that a run's
+    configuration (a ``train.TrainConfig``) and its ``loglam`` row fix."""
+    return dict(
+        loglam=loglam, derive_zabs=loglam is not None,
+        learning_rate=config.learning_rate,
+        weight_decay=config.weight_decay, decay_alpha=config.decay_alpha,
+        decay_step=config.decay_step, b1=config.b1, b2=config.b2,
+        eps=config.eps, bounds=config.bounds,
+        tau_which=config.options.tau_which,
+        reference_norm=config.reference_norm, mxu_bf16=config.mxu_bf16)
+
+
+def epoch_loss(loss_sums, n_reals, n_total: int, batch_size: int) -> Tensor:
+    """The reference's epoch loss from the kernel's books: the sum of the
+    batch means over ``max(n_total // batch_size, 1)``, along the last
+    axis."""
+    means = loss_sums / torch.clamp(n_reals, min=1.0)
+    return means.sum(dim=-1) / max(n_total // batch_size, 1)

@@ -28,10 +28,11 @@ import torch
 
 from ..data.batch import SpectraBatch
 from ..data.loader import EpochIndices, ResidualDataset, as_f32, pad_rows
+from ..data.shuffle import local_batch
 from ..models.params import PARAM_NAMES, QFAParams
 from ..models.qfa import GradCounts, normalize_with_counts, summed_stats
 from ..train import adam
-from ..train.loop import TrainConfig, TrainState, _apply
+from ..train.state import TrainConfig, TrainState, apply_step
 from .mesh import DataMesh, count_rows, shard_leaves, shard_size
 
 __all__ = [
@@ -80,10 +81,9 @@ def shard_epoch_indices(generator: torch.Generator | None, n: int,
     ndev = mesh.size
     if n % ndev:
         raise ValueError(f"dataset size {n} not divisible by {ndev} devices")
-    if batch_size % ndev:
-        raise ValueError(f"batch size {batch_size} not divisible by {ndev}")
+    local_bs = local_batch(batch_size, ndev)
     n_real = n if n_real is None else n_real
-    shard_n, local_bs = n // ndev, batch_size // ndev
+    shard_n = n // ndev
     n_batches = -(-shard_n // local_bs)
     pad = n_batches * local_bs - shard_n
     p = torch.randperm(shard_n, generator=generator) if perm is None \
@@ -146,7 +146,7 @@ def make_dp_step_fn(config: TrainConfig, mesh: DataMesh, *,
         else:
             grads = QFAParams(*(getattr(grads, k) / n_batch
                                 for k in PARAM_NAMES)).requires_grad_(False)
-        return _apply(config, adam_cfg, state, total / n_batch, grads)
+        return apply_step(config, adam_cfg, state, total / n_batch, grads)
 
     return step
 

@@ -24,7 +24,7 @@ import torch
 from ..data.loader import ResidualDataset
 from ..ops.epoch_kernel import fused_train_epoch, fused_train_epoch_plain
 from ..train import adam
-from ..train.loop import TrainConfig, TrainState
+from ..train.state import TrainConfig, TrainState
 from ..utils.profiling import span
 from ._common import (
     epoch_loss,

@@ -35,7 +35,10 @@ from typing import Any, NamedTuple
 import torch
 import torch.distributed as dist
 
+from ..data.shuffle import batch_window
 from ..models.params import PARAM_NAMES, QFAParams
+from ..train import adam
+from ..train.state import TrainState
 
 Tensor = torch.Tensor
 
@@ -148,8 +151,7 @@ def shard_size(n_real: int, batch_size: int | None, size: int, *,
         return local_shard_size(-(-n_real // size) * size, size)
     local = batch_size // size
     if tile_batch is not None:
-        tb = max(1, min(int(tile_batch), local))
-        local = -(-local // tb) * tb
+        local = batch_window(local, tile_batch)[1]
     return max(-(-n_real // batch_size), 1) * local
 
 
@@ -235,9 +237,6 @@ def replicated(tree, mesh: DataMesh):
     """``tree`` (a ``TrainState``, a :class:`QFAParams`, or a list of
     them) as rank 0 holds it, on every rank: one broadcast of the packed
     leaves, on the mesh's device."""
-    from ..train import adam
-    from ..train.loop import TrainState
-
     if isinstance(tree, TrainState):
         p, m, v = replicated([tree.params, tree.opt_state.m,
                               tree.opt_state.v], mesh)

@@ -62,7 +62,7 @@ from ..ops.epoch_kernel import (
     fused_train_epoch_plain,
 )
 from ..train import adam
-from ..train.loop import TrainConfig, TrainState
+from ..train.state import TrainConfig, TrainState
 from ._common import (
     epoch_loss,
     kernel_kwargs,

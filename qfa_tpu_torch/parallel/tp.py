@@ -42,7 +42,7 @@ from ..models.qfa import (
     noise_diagonal,
     normalize_with_counts,
 )
-from ..train.loop import TrainConfig, TrainState, _apply
+from ..train.state import TrainConfig, TrainState, apply_step
 from .mesh import initialize_distributed
 
 Tensor = torch.Tensor
@@ -304,7 +304,7 @@ def make_tp_step_fn(config: TrainConfig, mesh: Mesh2D) -> Callable:
         else:
             grads = QFAParams(*(getattr(grads, k) / n_real
                                 for k in PARAM_NAMES)).requires_grad_(False)
-        return _apply(config, adam_cfg, state, total / n_real, grads,
-                      all_shards_ok)
+        return apply_step(config, adam_cfg, state, total / n_real, grads,
+                          all_shards_ok)
 
     return step

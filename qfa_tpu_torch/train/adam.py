@@ -10,8 +10,9 @@ The same rules as ``qfa_tpu.train.adam``:
 * the step decay is ``lr0 * alpha ** ((i + 1) // step)``.
 
 The learning rate and both corrections are computed in float32 on the
-host (:func:`schedule_f32`), as the JAX package computes them, and are
-shared by this module, the epoch kernel and its plain version.
+host (:func:`schedule_f32`, defined in ``ops.common``), as the JAX package
+computes them, and are shared by this module, the epoch kernel and its
+plain version.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from ..models.params import PARAM_NAMES, QFAParams
+from ..ops.common import schedule_f32
 
 __all__ = [
     "AdamConfig",
@@ -79,25 +81,6 @@ def init(params: QFAParams) -> AdamState:
         k: torch.zeros_like(getattr(params, k).detach()) for k in PARAM_NAMES
     }))
     return AdamState(m=zeros(), v=zeros(), epoch=0)
-
-
-def schedule_f32(
-    epoch: int,
-    *,
-    learning_rate: float,
-    decay_alpha: float,
-    decay_step: int,
-    b1: float,
-    b2: float,
-) -> tuple[np.float32, np.float32, np.float32]:
-    """``(lr, bc1, bc2)`` of counter ``epoch`` in float32:
-    ``lr = lr0 * alpha ** ((epoch + 1) // step)``, ``bc1 = 1 - b1 ** t``,
-    ``bc2 = 1 - b2 ** t`` with ``t = epoch + 1``."""
-    f32 = np.float32
-    t = f32(epoch + 1)
-    decay = f32(decay_alpha) ** f32((epoch + 1) // decay_step)
-    return f32(f32(learning_rate) * decay), f32(1.0) - f32(b1) ** t, \
-        f32(1.0) - f32(b2) ** t
 
 
 def _schedule(config: AdamConfig, epoch: int):

@@ -5,7 +5,8 @@ The npz schema is ``qfa_tpu.train.checkpoint``'s key for key (``mu``,
 ``epoch``, ``F, Psi, omega, tau0, c0, beta`` and their ``m_*``/``v_*``
 moments, float32; ``epoch`` int32), so either package resumes the
 other's run. The reference-schema parameter npz is
-``models.params.save_npz``.
+``models.params.save_npz``; :func:`make_ckpt_saver` writes both at a
+trainer's checkpoints.
 """
 
 from __future__ import annotations
@@ -15,11 +16,12 @@ import os
 import numpy as np
 import torch
 
-from ..models.params import PARAM_NAMES, QFAParams
+from ..models.params import PARAM_NAMES, QFAParams, save_npz
 from . import adam
-from .loop import TrainState
+from .state import TrainState
 
-__all__ = ["save_state", "load_state", "latest_checkpoint"]
+__all__ = ["make_ckpt_saver", "save_state", "load_state",
+           "latest_checkpoint"]
 
 
 def save_state(path: str, state: TrainState, mu) -> None:
@@ -69,3 +71,21 @@ def latest_checkpoint(directory: str,
             if epoch > best_epoch:
                 best, best_epoch = os.path.join(directory, name), epoch
     return best
+
+
+def make_ckpt_saver(output_dir: str, mu, save_full_state: bool):
+    """Epoch-checkpoint writer ``(state, ckpt) -> None``: the reference npz
+    (``checkpoints/model_parameters_epoch_XX.npz``) and, with
+    ``save_full_state``, the full state (params, Adam moments, epoch) in
+    ``checkpoints/state_epoch_XX.npz`` for an exact resume."""
+
+    def _save(state: TrainState, ckpt: int) -> None:
+        save_npz(
+            f"{output_dir}/checkpoints/model_parameters_epoch_{ckpt:02d}.npz",
+            state.params, mu,
+        )
+        if save_full_state:
+            save_state(f"{output_dir}/checkpoints/state_epoch_{ckpt:02d}.npz",
+                       state, mu)
+
+    return _save

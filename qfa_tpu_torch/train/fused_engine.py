@@ -11,13 +11,17 @@ replaying the physical reshuffles of the uninterrupted run; an optional
 held-out set is evaluated after every chunk.
 
 Shuffling: every epoch regroups ``tile_batch``-row tiles into batches
-through a tile permutation; ``reshuffle_interval > 0`` also permutes the
-rows physically every K epochs. Both come from a :class:`Shuffler`, by
-default :class:`SeededShuffler` (``torch.Generator``s seeded from the
-run's seed and the epoch), so a permutation depends only on the seed and
-the epoch number. On the GPU the tile is only this shuffle granule:
-:func:`pick_tiling` takes the largest power of two <= 256 that divides
-the batch, so batches are never padded.
+through a tile permutation (by default ``data.shuffle.batch_window``'s
+tile, which pads no batch); ``reshuffle_interval > 0`` also permutes the
+rows physically every K epochs. Both come from a ``data.shuffle.Shuffler``
+(default ``SeededShuffler``: a permutation depends only on the seed and the
+epoch number).
+
+The set-up, the chunk rule and the epoch-boundary policy are the run
+skeleton's (``train._run``). Each chunk runs on one epoch function
+``(state, data, perms) -> (state, per-epoch losses)``, picked once by the
+placement: the epoch kernel on one device, ``parallel.epoch_dp`` or
+``parallel.sync_dp`` on a mesh.
 
 With a ``mesh`` (``parallel.make_mesh``, one process per device) each
 rank is handed its own rows only (``parallel.rank_rows``: contiguous
@@ -51,87 +55,34 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Callable, Protocol
+from typing import Callable
 
 import numpy as np
 import torch
 
 from ..data.loader import ResidualDataset, pad_rows
+from ..data.shuffle import SeededShuffler, Shuffler, batch_window
 from ..models.params import PARAM_NAMES, QFAParams, smooth_params
 from ..ops.epoch_kernel import (
+    epoch_loss,
     fused_train_epoch,
     fused_train_epoch_plain,
+    kernel_kwargs,
     upload,
 )
-from ..utils.profiling import raise_if_nonfinite, span
+from ..utils.profiling import span
 from . import adam
-from .loop import (
-    TrainConfig,
-    TrainState,
-    make_ckpt_saver,
-    make_val_fn,
-    reshuffle_dataset,
-)
+from ._run import Run, chunk_length
+from .loop import reshuffle_dataset
+from .state import TrainConfig, TrainState
 
-__all__ = ["Shuffler", "SeededShuffler", "pick_tiling", "fit_fused",
-           "AHEAD", "DISCARDED"]
+__all__ = ["fit_fused", "AHEAD", "DISCARDED"]
 
 #: Epochs launched by :func:`fit_fused` before the losses of the chunk
 #: before them were read back (module docstring).
 AHEAD = 0
 #: ... of them dropped because that chunk was rejected or stopped the run.
 DISCARDED = 0
-
-
-class Shuffler(Protocol):
-    """Source of the per-epoch permutations of :func:`fit_fused`."""
-
-    def tiles(self, epoch: int, n_tiles: int) -> torch.Tensor:
-        """Tile permutation of ``epoch``: ``n_tiles`` int64 indices."""
-
-    def rows(self, epoch: int, n_rows: int) -> torch.Tensor:
-        """Row permutation of the physical reshuffle at ``epoch``."""
-
-
-class SeededShuffler:
-    """Permutations from ``torch.Generator``s seeded with (seed, epoch,
-    stream): tile permutations on stream 0, row reshuffles on stream 1;
-    ``rank`` > 0 (a rank of a data mesh) joins the seed, so that every
-    rank shuffles its shard its own way and rank 0 the single-device
-    way."""
-
-    def __init__(self, seed: int = 0, rank: int = 0):
-        self.seed = int(seed)
-        self.rank = int(rank)
-
-    def _generator(self, epoch: int, stream: int) -> torch.Generator:
-        entropy = [self.seed, int(epoch), stream]
-        if self.rank:
-            entropy.append(self.rank)
-        state = np.random.SeedSequence(entropy)
-        return torch.Generator().manual_seed(
-            int(state.generate_state(1, np.uint64)[0]))
-
-    def tiles(self, epoch: int, n_tiles: int) -> torch.Tensor:
-        return torch.randperm(n_tiles, generator=self._generator(epoch, 0))
-
-    def rows(self, epoch: int, n_rows: int) -> torch.Tensor:
-        return torch.randperm(n_rows, generator=self._generator(epoch, 1))
-
-
-def pick_tiling(batch_size: int, limit: int = 256) -> tuple[int, int]:
-    """``(tile_batch, batch_rows)`` for a batch size: the tile is the
-    largest power of two <= ``limit`` that divides ``batch_size`` (4 for
-    the reference default 500), and ``batch_rows == batch_size``, so no
-    batch carries padding. The TPU's sublane alignment and its measured
-    cost model do not apply on the GPU, where the tile is only the
-    granule of the epoch shuffle."""
-    if batch_size < 1:
-        raise ValueError(f"batch size must be >= 1, got {batch_size}")
-    tb = 1
-    while tb * 2 <= limit and batch_size % (tb * 2) == 0:
-        tb *= 2
-    return tb, batch_size
 
 
 def _to_host(tensors: list[torch.Tensor]) -> Callable[[], list]:
@@ -172,6 +123,49 @@ def _state_to_host(state: TrainState) -> Callable[[], TrainState]:
                                             epoch=state.opt_state.epoch))
 
     return get
+
+
+def _smooth(params: QFAParams) -> QFAParams:
+    with span("qfa.fit_fused.smooth"):
+        return smooth_params(params)
+
+
+def _device_epoch_fn(engine, config: TrainConfig, loglam, n_batches: int,
+                     n_real: int, tile_batch: int) -> Callable:
+    """The epoch function of one device: ``engine`` (the epoch kernel or
+    its plain version) over ``perms.shape[0]`` epochs in one call, and the
+    reference's loss of each."""
+    kw = kernel_kwargs(config, loglam)
+
+    def epoch_fn(state: TrainState, data: ResidualDataset, perms):
+        ep0, n = int(state.opt_state.epoch), perms.shape[0]
+        out = engine(state.params, state.opt_state.m, state.opt_state.v,
+                     data.delta, data.error, data.zabs, perms, data.mask,
+                     epoch=ep0, n_batches=n_batches, n_epochs=n,
+                     tile_batch=tile_batch, **kw)
+        return (TrainState(out.params, adam.AdamState(m=out.m, v=out.v,
+                                                      epoch=ep0 + n)),
+                epoch_loss(out.loss_sums.reshape(n, -1),
+                           out.n_real.reshape(n, -1), n_real,
+                           config.batch_size))
+
+    return epoch_fn
+
+
+def _local_sgd_epoch_fn(make: Callable, config: TrainConfig, mesh,
+                        kw: dict) -> Callable:
+    """The local-SGD epoch function: ``make(config, mesh,
+    epochs_per_launch=n, **kw)``'s for a chunk of n epochs, each built
+    once."""
+    fns: dict = {}
+
+    def epoch_fn(state: TrainState, data: ResidualDataset, perms):
+        n = perms.shape[0]
+        if n not in fns:
+            fns[n] = make(config, mesh, epochs_per_launch=n, **kw)
+        return fns[n](state, data, perms)
+
+    return epoch_fn
 
 
 def fit_fused(
@@ -228,25 +222,29 @@ def fit_fused(
             raise ValueError(
                 "reshuffle_interval is not supported with a mesh (the shards "
                 "reshuffle locally via the per-rank tile permutation)")
-        ndev = 1 if mesh is None else mesh.size
-        writer = mesh is None or mesh.rank == 0  # logs, validates, writes
+        run = Run("fit_fused", params, config, mu, mesh=mesh,
+                  initial_state=initial_state, output_dir=output_dir,
+                  save_full_state=save_full_state, logger=logger,
+                  metrics_cb=metrics_cb, val_data=val_data)
+        state, b = run.state, config.batch_size
         if shuffler is None:
             shuffler = SeededShuffler(seed, 0 if mesh is None else mesh.rank)
-        state = initial_state if initial_state is not None \
-            else TrainState(params, adam.init(params))
-        start_epoch = int(state.opt_state.epoch)
-        b = config.batch_size
-        if b % ndev:
-            raise ValueError(f"batch size {b} not divisible by the "
-                             f"{ndev}-device mesh")
         if derive_mask:
             data = data._replace(mask=None)
-        if mesh is not None:
-            from ..parallel import (
+        # the tile, and the rows of a batch on each rank
+        tb, rows = batch_window(b // run.ndev, tile_batch)
+        if mesh is None:
+            n_real = data.size  # before padding: the loss divisor
+            n_batches = max(-(-n_real // b), 1)
+            data = pad_rows(data, n_batches * rows)
+            epoch_fn = _device_epoch_fn(
+                fused_train_epoch_plain if plain else fused_train_epoch,
+                config, loglam, n_batches, n_real, tb)
+        else:
+            from ..parallel import (  # parallel imports train
                 local_shard,
                 make_epoch_dp_fn,
                 make_sync_dp_epoch_fn,
-                replicated,
             )
 
             # this rank's rows, padded to its whole shard; the loss
@@ -254,101 +252,38 @@ def fit_fused(
             with span("qfa.fit_fused.shard"):
                 data, n_real = local_shard(data, b, mesh,
                                            tile_batch=tile_batch)
-        else:
-            n_real = data.size  # before padding: the loss divisor
-        b_shard = b // ndev  # real rows of a batch on each rank
-        if tile_batch is None:
-            tb, shard_rows = pick_tiling(b_shard)
-        else:
-            tb = max(1, min(int(tile_batch), b_shard))
-            shard_rows = -(-b_shard // tb) * tb
-        batch_rows = shard_rows * ndev  # rows each update spans, all ranks
-        n_batches = max(-(-n_real // b), 1)
-        engine = fused_train_epoch_plain if plain else fused_train_epoch
-        if mesh is None:
-            data = pad_rows(data, n_batches * batch_rows)
-        else:
-            if loglam is not None:
-                loglam = loglam.to(mesh.device)
-            state = replicated(state, mesh)
-            dp_kw = dict(tile_batch=tb, batch_rows=batch_rows, loglam=loglam,
+            dp_kw = dict(tile_batch=tb, batch_rows=rows * mesh.size,
+                         loglam=None if loglam is None
+                         else loglam.to(mesh.device),
                          n_real=n_real, plain=plain)
-            sync_fn = make_sync_dp_epoch_fn(
+            epoch_fn = make_sync_dp_epoch_fn(
                 config, mesh, batches_per_launch=batches_per_launch,
-                **dp_kw) if dp_exact else None
-            chunk_fns: dict = {}  # chunk size -> local-SGD epoch function
+                **dp_kw) if dp_exact else _local_sgd_epoch_fn(
+                    make_epoch_dp_fn, config, mesh, dp_kw)
         n_tiles = data.size // tb  # this rank's
-        val_fn = make_val_fn(val_data, config.options) if writer else None
-        if isinstance(mu, torch.Tensor):
-            mu = mu.detach().cpu()  # once, not a device read per save
-        _save = make_ckpt_saver(output_dir, mu, save_full_state)
-        save_dir = output_dir if writer else None  # chunks end alike on all
-        if not writer:
-            logger = metrics_cb = None
+        epl = max(1, int(epochs_per_launch))
         lookahead = mesh is None
 
-        def draw(epoch, chunk):
-            """The tile permutations of ``chunk`` epochs from ``epoch``."""
-            return torch.stack([torch.as_tensor(shuffler.tiles(epoch + k,
-                                                               n_tiles))
-                                for k in range(chunk)])
-
         def prepare(epoch):
-            """The chunk from ``epoch``, ending exactly at the next
-            epoch-boundary action: its length and permutations, after the
-            physical reshuffle that starts it."""
+            """The chunk from ``epoch``: its length and permutations,
+            after the physical reshuffle that starts it."""
             nonlocal data
-            chunk = min(epl, config.n_epochs - epoch,
-                        config.smooth_interval
-                        - epoch % config.smooth_interval)
-            if output_dir:
-                chunk = min(chunk, config.save_interval
-                            - epoch % config.save_interval)
-            if reshuffle_interval:
-                chunk = min(chunk,
-                            reshuffle_interval - epoch % reshuffle_interval)
+            chunk = chunk_length(epoch, config, epl, saves=run.saves,
+                                 reshuffle=reshuffle_interval)
             with span("qfa.fit_fused.shuffle"):
                 if reshuffle_interval and epoch \
                         and epoch % reshuffle_interval == 0:
                     data = reshuffle_dataset(data, upload(
                         shuffler.rows(epoch, data.size), data.delta.device))
-                return chunk, draw(epoch, chunk)
+                return chunk, torch.stack([
+                    torch.as_tensor(shuffler.tiles(epoch + k, n_tiles))
+                    for k in range(chunk)])
 
-        def launch(state, epoch, chunk, perms):
-            """Enqueue ``chunk`` epochs from ``epoch`` on ``perms``: (state
-            after them, a function that reads their losses back)."""
-            if mesh is not None:
-                if sync_fn is not None:
-                    state, loss = sync_fn(state, data, perms[0])
-                else:
-                    fn = chunk_fns.get(chunk)
-                    if fn is None:
-                        fn = chunk_fns[chunk] = make_epoch_dp_fn(
-                            config, mesh, epochs_per_launch=chunk, **dp_kw)
-                    state, loss = fn(state, data, perms)
-                wait = _to_host([loss.reshape(-1)])
-            else:
-                out = engine(
-                    state.params, state.opt_state.m, state.opt_state.v,
-                    data.delta, data.error, data.zabs, perms, data.mask,
-                    epoch=epoch, n_batches=n_batches, n_epochs=chunk,
-                    loglam=loglam, derive_zabs=loglam is not None,
-                    tile_batch=tb, learning_rate=config.learning_rate,
-                    weight_decay=config.weight_decay,
-                    decay_alpha=config.decay_alpha,
-                    decay_step=config.decay_step, b1=config.b1,
-                    b2=config.b2, eps=config.eps, bounds=config.bounds,
-                    tau_which=config.options.tau_which,
-                    reference_norm=config.reference_norm,
-                    mxu_bf16=config.mxu_bf16, bwd_wide=config.bwd_wide,
-                )
-                state = TrainState(out.params, adam.AdamState(
-                    m=out.m, v=out.v, epoch=epoch + chunk))
-                # reference epoch loss: sum of batch means over
-                # floor(N_real / B)
-                means = out.loss_sums.reshape(chunk, -1) / torch.clamp(
-                    out.n_real.reshape(chunk, -1), min=1.0)
-                wait = _to_host([means.sum(dim=1) / max(n_real // b, 1)])
+        def launch(state, perms):
+            """Enqueue the chunk on ``perms``: (state after it, a function
+            that reads its losses back)."""
+            state, losses = epoch_fn(state, data, perms)
+            wait = _to_host([losses.reshape(-1)])
 
             def read():
                 with span("qfa.fit_fused.readback"):
@@ -356,16 +291,18 @@ def fit_fused(
 
             return state, read
 
-        if reshuffle_interval and start_epoch:
+        def save(state, ckpt):
+            with span("qfa.fit_fused.save"):
+                run.save(state, ckpt)
+
+        if reshuffle_interval and run.start:
             # exact resume: replay the reshuffles of the uninterrupted run
-            for past in range(reshuffle_interval, start_epoch,
+            for past in range(reshuffle_interval, run.start,
                               reshuffle_interval):
                 data = reshuffle_dataset(data, upload(
                     shuffler.rows(past, data.size), data.delta.device))
 
-        history: list = []
-        epl = max(1, int(epochs_per_launch))
-        epoch = start_epoch
+        epoch = run.start
         # the chunk from ``epoch`` when the last one prepared it:
         # (chunk, perms, (state after it, read) or None when not launched)
         todo = None
@@ -374,25 +311,21 @@ def fit_fused(
             chunk, perms, launched = todo or (*prepare(epoch), None)
             todo = failed = None
             prev_state = state  # rollback anchor
-            state, read = launched or launch(state, epoch, chunk, perms)
+            state, read = launched or launch(state, perms)
             ckpt = epoch + chunk
-            smooth_now = ckpt % config.smooth_interval == 0
-            save_now = save_dir and ckpt % config.save_interval == 0
+            smooth_now, save_now = run.actions(ckpt)
             if lookahead:
                 # the state the next chunk starts from, its checkpoint's
                 # copy and the next chunk, all enqueued before the read
                 nxt = state
                 if smooth_now:
-                    with span("qfa.fit_fused.smooth"):
-                        nxt = TrainState(smooth_params(state.params),
-                                         state.opt_state)
+                    nxt = TrainState(_smooth(state.params), state.opt_state)
                 if save_now:
                     snapshot = _state_to_host(nxt)
                 if ckpt < config.n_epochs:
                     try:
                         n_chunk, n_perms = prepare(ckpt)
-                        todo = (n_chunk, n_perms,
-                                launch(nxt, ckpt, n_chunk, n_perms))
+                        todo = (n_chunk, n_perms, launch(nxt, n_perms))
                     except Exception as e:
                         failed = e  # raised once this chunk is saved
                     else:
@@ -401,11 +334,7 @@ def fit_fused(
             now = time.perf_counter()
             dt, t_last = now - t_last, now
             with span("qfa.fit_fused.check"):
-                raise_if_nonfinite(
-                    f"fit_fused epoch{'s' if chunk > 1 else ''} {epoch}"
-                    + (f"-{epoch + chunk - 1}" if chunk > 1 else ""), losses,
-                    params=state.params, opt_state=state.opt_state)
-                history.extend(losses)
+                stop = run.check(epoch, losses, state)
                 rejected = config.reject_nonfinite and not all(
                     np.isfinite(x) for x in losses)
                 if rejected:
@@ -415,48 +344,29 @@ def fit_fused(
                     state = TrainState(prev_state.params, adam.AdamState(
                         m=prev_state.opt_state.m, v=prev_state.opt_state.v,
                         epoch=state.opt_state.epoch))
-                    if logger is not None:
-                        logger.warning(
+                    if run.logger is not None:
+                        run.logger.warning(
                             "epoch%s %03d%s produced non-finite loss %s: "
                             "update rejected, parameters and moments rolled"
                             " back", "s" if chunk > 1 else "", epoch,
                             f"-{epoch + chunk - 1:03d}" if chunk > 1 else "",
                             losses)
-                stop = config.stop_on_negative_loss and any(x < 0.0
-                                                            for x in losses)
                 ahead_kept = lookahead and not (rejected or stop)
                 if lookahead and not ahead_kept and todo is not None:
                     # drop the next chunk's launch; keep its permutations
                     DISCARDED += todo[0]
                     todo = (*todo[:2], None)
             with span("qfa.fit_fused.report"):
-                val_loss = None if val_fn is None or rejected \
-                    else val_fn(state.params)
-                for k, loss in enumerate(losses):
-                    if logger is not None and not rejected:
-                        msg = (f"epoch: {epoch + k:03d}/"
-                               f"{config.n_epochs:03d}  ;  loss:  "
-                               f"{loss:.2f}  ;  time:  {dt / chunk:.2f} s")
-                        if val_loss is not None and k == chunk - 1:
-                            msg += f"  ;  val_loss:  {val_loss:.2f}"
-                        logger.info(msg)
-                    if metrics_cb is not None:
-                        metrics_cb(epoch + k, loss, dt / chunk)
+                run.report(epoch, losses, dt, state.params, rejected)
             if ahead_kept:
                 state = nxt
                 if save_now:
-                    with span("qfa.fit_fused.save"):
-                        _save(snapshot(), ckpt)
+                    save(snapshot(), ckpt)
             else:
-                if stop or smooth_now:
-                    with span("qfa.fit_fused.smooth"):
-                        state.params = smooth_params(state.params)
-                if save_dir and (stop or save_now):
-                    with span("qfa.fit_fused.save"):
-                        _save(state, ckpt)
+                run.boundary(state, ckpt, stop, _smooth, save)
             if stop:
                 break
             if failed is not None:
                 raise failed
             epoch = ckpt
-        return state.params, history
+        return state.params, run.history

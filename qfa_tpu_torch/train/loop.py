@@ -1,4 +1,4 @@
-"""Training loops and the pieces the trainers share.
+"""Training loops.
 
 The counterparts of ``qfa_tpu.train.loop``:
 
@@ -11,11 +11,12 @@ The counterparts of ``qfa_tpu.train.loop``:
   (surveys larger than device memory), one host sync per epoch;
 * the resident plain autograd trainer ``fit`` with ``make_epoch_fn``,
   ``train_epoch`` and ``make_sliced_epoch_fn``;
-* ``TrainConfig``, ``TrainState``, ``guard_nonfinite``,
-  ``make_ckpt_saver``, ``make_val_fn`` and ``reshuffle_dataset``.
+* ``reshuffle_dataset``; and, defined in ``state``, ``checkpoint`` and
+  ``_run``, ``TrainConfig``, ``TrainState``, the guards,
+  ``make_ckpt_saver`` and ``make_val_fn``.
 
-The production trainer on the whole-epoch kernel is
-``train.fused_engine.fit_fused``.
+Both trainers run on the run skeleton (``_run.Run``) of the production
+trainer on the whole-epoch kernel, ``train.fused_engine.fit_fused``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ from __future__ import annotations
 import contextlib
 import logging
 import time
-from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
@@ -36,18 +36,21 @@ from ..data.loader import (
     batch_indices,
     epoch_indices,
 )
-from ..models.params import (
-    PARAM_NAMES,
-    ParamBounds,
-    QFAParams,
-    clip_params,
-    save_npz,
-    smooth_params,
-)
-from ..models.qfa import ModelOptions, loss_and_grads, normalize_with_counts
+from ..data.shuffle import SeededShuffler
+from ..models.params import PARAM_NAMES, QFAParams
+from ..models.qfa import loss_and_grads, normalize_with_counts
 from ..utils.device import resolve_device, to_device
-from ..utils.profiling import nan_debugging, nonfinite_leaf, raise_if_nonfinite
+from ..utils.profiling import nan_debugging, nonfinite_leaf
 from . import adam
+from ._run import Run, make_val_fn
+from .checkpoint import make_ckpt_saver
+from .state import (
+    TrainConfig,
+    TrainState,
+    apply_step,
+    guard_nonfinite,
+    guard_nonfinite_device,
+)
 
 Tensor = torch.Tensor
 
@@ -68,148 +71,6 @@ __all__ = [
     "train_epoch",
 ]
 
-@dataclass(frozen=True)
-class TrainConfig:
-    """Static training configuration (the JAX package's fields)."""
-
-    n_epochs: int = 500
-    batch_size: int = 500
-    learning_rate: float = 1e-3
-    weight_decay: float = 0.1
-    decay_alpha: float = 0.9
-    decay_step: int = 10
-    b1: float = 0.9
-    b2: float = 0.999
-    eps: float = 1e-8
-    smooth_interval: int = 5
-    save_interval: int = 5
-    reference_norm: bool = True  #: per-element nonzero-count grad averaging.
-    stop_on_negative_loss: bool = True
-    #: reject updates whose loss or params go NaN/Inf: per step on the
-    #: step engines, per epoch (rolled back) on the whole-epoch engine.
-    reject_nonfinite: bool = True
-    #: bf16 operands (f32 accumulation) on the epoch kernel's six heavy
-    #: products; counts, loss books and the Cholesky chain stay f32.
-    mxu_bf16: bool = False
-    #: accepted for configuration parity; the port's epoch has one
-    #: backward form, identical to ``False`` (see ``ops.epoch_kernel``).
-    bwd_wide: bool = False
-    options: ModelOptions = ModelOptions()
-    bounds: ParamBounds = ParamBounds()
-
-    def adam_config(self) -> adam.AdamConfig:
-        return adam.AdamConfig(
-            learning_rate=self.learning_rate,
-            b1=self.b1,
-            b2=self.b2,
-            eps=self.eps,
-            weight_decay=self.weight_decay,
-            decay_alpha=self.decay_alpha,
-            decay_step=self.decay_step,
-        )
-
-
-@dataclass
-class TrainState:
-    """Mutable training state: parameters and optimizer state."""
-
-    params: QFAParams
-    opt_state: adam.AdamState
-
-
-def _all_finite(params: QFAParams) -> bool:
-    return all(bool(torch.isfinite(getattr(params, k)).all())
-               for k in PARAM_NAMES)
-
-
-def guard_nonfinite(new_state: TrainState, old_state: TrainState, loss
-                    ) -> tuple[TrainState, bool]:
-    """Reject an update that produced non-finite values: returns the new
-    state when the loss and every new parameter are finite, otherwise the
-    old state (moments included); and whether the update was kept."""
-    ok = bool(torch.isfinite(torch.as_tensor(loss)).all()) and \
-        _all_finite(new_state.params)
-    return (new_state if ok else old_state), ok
-
-
-def guard_nonfinite_device(new_state: TrainState, old_state: TrainState,
-                           loss: Tensor, all_shards: Callable | None = None
-                           ) -> tuple[TrainState, Tensor]:
-    """:func:`guard_nonfinite` without a host sync: ``ok`` is a 0-d bool
-    tensor (the loss and every new parameter finite) and every tensor of
-    the returned state is ``torch.where(ok, new, old)``, moments included,
-    as in the JAX package's elementwise guard. The step functions use it,
-    so a step never waits for the card. Where each rank holds a shard of
-    the parameters, ``all_shards`` maps this rank's ``ok`` to the ``ok``
-    of every shard (a collective), so that all ranks keep or reject the
-    update together."""
-    ok = torch.isfinite(loss).all()
-    for k in PARAM_NAMES:
-        ok = ok & torch.isfinite(getattr(new_state.params, k)).all()
-    if all_shards is not None:
-        ok = all_shards(ok)
-
-    def pick(new: QFAParams, old: QFAParams) -> QFAParams:
-        return QFAParams(**{
-            k: torch.where(ok, getattr(new, k).detach(),
-                           getattr(old, k).detach()) for k in PARAM_NAMES})
-
-    opt = adam.AdamState(
-        m=pick(new_state.opt_state.m, old_state.opt_state.m
-               ).requires_grad_(False),
-        v=pick(new_state.opt_state.v, old_state.opt_state.v
-               ).requires_grad_(False),
-        epoch=new_state.opt_state.epoch)
-    return TrainState(pick(new_state.params, old_state.params), opt), ok
-
-
-def make_ckpt_saver(output_dir: str, mu, save_full_state: bool) -> Callable:
-    """Epoch-checkpoint writer: the reference npz
-    (``checkpoints/model_parameters_epoch_XX.npz``) and, with
-    ``save_full_state``, the full state (params, Adam moments, epoch) in
-    ``checkpoints/state_epoch_XX.npz`` for an exact resume."""
-
-    def _save(state: TrainState, ckpt: int) -> None:
-        save_npz(
-            f"{output_dir}/checkpoints/model_parameters_epoch_{ckpt:02d}.npz",
-            state.params, mu,
-        )
-        if save_full_state:
-            from .checkpoint import save_state
-
-            save_state(f"{output_dir}/checkpoints/state_epoch_{ckpt:02d}.npz",
-                       state, mu)
-
-    return _save
-
-
-def make_val_fn(val_data: ResidualDataset | None, options: ModelOptions
-                ) -> Callable | None:
-    """Held-out validation evaluator ``params -> mean NLL`` (a float), or
-    None. Evaluated with the plain torch likelihood in the plane layout
-    (the validation set keeps its zabs plane and mask), on the device the
-    validation tensors lie on."""
-    if val_data is None:
-        return None
-    from ..data.batch import SpectraBatch
-    from ..data.loader import as_f32
-    from ..models.qfa import mean_nll
-
-    batch = SpectraBatch(
-        delta=as_f32(val_data.delta),
-        error=as_f32(val_data.error),
-        zabs=as_f32(val_data.zabs),
-        mask=val_data.mask,
-        weight=torch.ones((val_data.size,), dtype=torch.float32,
-                          device=val_data.delta.device),
-    )
-
-    @torch.no_grad()
-    def val_fn(params: QFAParams) -> float:
-        return float(mean_nll(params, batch, options))
-
-    return val_fn
-
 
 def reshuffle_dataset(data: ResidualDataset, perm: Tensor) -> ResidualDataset:
     """Physically permute the rows of every tensor of the dataset by
@@ -223,20 +84,6 @@ def reshuffle_dataset(data: ResidualDataset, perm: Tensor) -> ResidualDataset:
 # ---- per-step engines ------------------------------------------------------
 
 
-def _apply(config: TrainConfig, adam_cfg: adam.AdamConfig,
-           state: TrainState, loss: Tensor, grads: QFAParams,
-           all_shards: Callable | None = None):
-    """Adam, clip and the device-side guard of one batch update
-    (``all_shards``: see :func:`guard_nonfinite_device`)."""
-    new_params, new_opt = adam.apply_update(state.params, grads,
-                                            state.opt_state, adam_cfg)
-    new_state = TrainState(clip_params(new_params, config.bounds), new_opt)
-    if config.reject_nonfinite:
-        new_state, _ = guard_nonfinite_device(new_state, state, loss,
-                                              all_shards)
-    return new_state, loss
-
-
 def make_step_fn(config: TrainConfig) -> Callable:
     """Training step ``(state, batch) -> (state, loss)`` on
     ``models.qfa.loss_and_grads`` (``torch.autograd``): the batch loss and
@@ -247,7 +94,7 @@ def make_step_fn(config: TrainConfig) -> Callable:
     def step_fn(state: TrainState, batch: SpectraBatch):
         loss, grads = loss_and_grads(state.params, batch, config.options,
                                      reference_norm=config.reference_norm)
-        return _apply(config, adam_cfg, state, loss, grads)
+        return apply_step(config, adam_cfg, state, loss, grads)
 
     return step_fn
 
@@ -278,12 +125,12 @@ def make_fused_step_fn(config: TrainConfig, tile_batch: int = 256,
         else:
             grads = QFAParams(*(getattr(out.grads, k) / n_real
                                 for k in PARAM_NAMES)).requires_grad_(False)
-        return _apply(config, adam_cfg, state, loss, grads)
+        return apply_step(config, adam_cfg, state, loss, grads)
 
     return step_fn
 
 
-# ---- shared epoch-boundary pieces ---------------------------------------
+# ---- pieces of the per-epoch trainers -------------------------------------
 
 
 def _state_to(state: TrainState, device: torch.device) -> TrainState:
@@ -295,18 +142,6 @@ def _state_to(state: TrainState, device: torch.device) -> TrainState:
     return TrainState(to(state.params), adam.AdamState(
         m=to(opt.m).requires_grad_(False), v=to(opt.v).requires_grad_(False),
         epoch=opt.epoch))
-
-
-def _report(logger, metrics_cb, epoch: int, n_epochs: int, loss: float,
-            dt: float, val_loss: float | None) -> None:
-    msg = (f"epoch: {epoch:03d}/{n_epochs:03d}  ;  "
-           f"loss:  {loss:.2f}  ;  time:  {dt:.2f} s")
-    if val_loss is not None:
-        msg += f"  ;  val_loss:  {val_loss:.2f}"
-    if logger is not None:
-        logger.info(msg)
-    if metrics_cb is not None:
-        metrics_cb(epoch, loss, dt)
 
 
 @contextlib.contextmanager
@@ -329,11 +164,6 @@ def _nan_watch(where: str, state: TrainState):
             f"invalid value (nan or inf) encountered in {where}"
             + (f": first non-finite leaf {bad}" if bad else "")
             + f" (anomaly mode: {e})") from e
-
-
-def _check_epoch(where: str, loss, state: TrainState) -> None:
-    raise_if_nonfinite(where, loss, params=state.params,
-                       opt_state=state.opt_state)
 
 
 # ---- the host-streaming trainer ------------------------------------------
@@ -388,38 +218,25 @@ def fit_streaming(
     """
     from ..data.streaming import stream_batches
 
-    state = initial_state if initial_state is not None \
-        else TrainState(params, adam.init(params))
     dev = resolve_device(device if sharding is None else sharding.device)
-    state = _state_to(state, dev)
+    run = Run("fit_streaming", params, config, mu, mesh=sharding,
+              initial_state=initial_state, output_dir=output_dir,
+              save_full_state=save_full_state, logger=logger,
+              metrics_cb=metrics_cb, val_data=val_data, val_device=dev)
+    state = _state_to(run.state, dev)
     if sharding is not None:
-        from ..parallel import make_dp_step_fn, replicated
+        from ..parallel import make_dp_step_fn  # parallel imports train
 
-        if config.batch_size % sharding.size:
-            raise ValueError(f"batch size {config.batch_size} not divisible "
-                             f"by the {sharding.size}-device mesh")
-        state = replicated(state, sharding)
         if step_fn is None:
             step_fn = make_dp_step_fn(config, sharding)
     elif step_fn is None:
         step_fn = make_step_fn(config)
-    start_epoch = int(state.opt_state.epoch)
     niter = max(host_data.size // config.batch_size, 1)
-    writer = sharding is None or sharding.rank == 0
-    if val_data is not None and writer:
-        val_data = ResidualDataset(*(None if x is None else x.to(dev)
-                                     for x in val_data))
-    val_fn = make_val_fn(val_data, config.options) if writer else None
-    _save = make_ckpt_saver(output_dir, mu, save_full_state)
-    if not writer:
-        output_dir = logger = metrics_cb = None
-    history: list = []
-    for epoch in range(start_epoch, config.n_epochs):
+    for epoch in range(run.start, config.n_epochs):
         rng = np.random.default_rng(seed + epoch)
         t0 = time.perf_counter()
         losses = []
-        where = f"fit_streaming epoch {epoch}"
-        with _nan_watch(where, state):
+        with _nan_watch(run.where(epoch), state):
             for batch in stream_batches(host_data, config.batch_size, rng,
                                         prefetch=prefetch, device=dev,
                                         sharding=sharding):
@@ -428,24 +245,11 @@ def fit_streaming(
         # reference epoch-loss bookkeeping: sum of batch means / floor(N/B);
         # the epoch's one host sync
         epoch_loss = float(torch.stack(losses).sum()) / niter
-        _check_epoch(where, epoch_loss, state)
         dt = time.perf_counter() - t0
-        history.append(epoch_loss)
-        val_loss = None if val_fn is None else val_fn(state.params)
-        _report(logger, metrics_cb, epoch, config.n_epochs, epoch_loss, dt,
-                val_loss)
         state = TrainState(state.params, adam.next_epoch(state.opt_state))
-        ckpt = epoch + 1
-        if config.stop_on_negative_loss and epoch_loss < 0.0:
-            state.params = smooth_params(state.params)
-            if output_dir:
-                _save(state, ckpt)
+        if run.end_epoch(epoch, epoch_loss, dt, state):
             break
-        if ckpt % config.smooth_interval == 0:
-            state.params = smooth_params(state.params)
-        if output_dir and ckpt % config.save_interval == 0:
-            _save(state, ckpt)
-    return state.params, history
+    return state.params, run.history
 
 
 # ---- the resident plain autograd trainer ---------------------------------
@@ -554,7 +358,7 @@ def fit(
 
     ``data`` lies on the training device, ``params`` (or
     ``initial_state``) on the same one. Epoch ``e`` shuffles the rows by
-    ``shuffler.rows(e, N)`` (a ``train.fused_engine.Shuffler``; default
+    ``shuffler.rows(e, N)`` (a ``data.shuffle.Shuffler``; default
     ``SeededShuffler(seed)``), so a permutation depends only on the seed
     and the epoch and a resumed run continues the uninterrupted
     trajectory.
@@ -572,33 +376,27 @@ def fit(
     rank 0 logs, validates and writes.
     Returns (final params, per-epoch losses of the epochs run here).
     """
-    from .fused_engine import SeededShuffler
-
-    rank = 0 if mesh is None else mesh.rank
-    shuffler = SeededShuffler(seed, rank) if shuffler is None else shuffler
-    state = initial_state if initial_state is not None \
-        else TrainState(params, adam.init(params))
-    start_epoch = int(state.opt_state.epoch)
+    shuffler = SeededShuffler(seed, 0 if mesh is None else mesh.rank) \
+        if shuffler is None else shuffler
+    run = Run("fit", params, config, mu, mesh=mesh,
+              initial_state=initial_state, output_dir=output_dir,
+              save_full_state=save_full_state, logger=logger,
+              metrics_cb=metrics_cb, val_data=val_data)
+    state = run.state
     if mesh is not None:
-        from ..parallel import (
+        from ..parallel import (  # parallel imports train
             local_shard,
             make_dp_epoch_fn,
-            replicated,
             shard_epoch_indices,
         )
 
-        ndev = mesh.size
-        if config.batch_size % ndev:
-            raise ValueError(f"batch size {config.batch_size} not divisible "
-                             f"by the {ndev}-device mesh")
         data, n_real = local_shard(data, None, mesh)
-        state = replicated(state, mesh)
         dp_fn = make_dp_epoch_fn(config, mesh, engine=dp_engine,
                                  n_real=n_real)
 
         def run_epoch(state, epoch):
             ei = shard_epoch_indices(
-                None, data.size * ndev, config.batch_size, mesh,
+                None, data.size * mesh.size, config.batch_size, mesh,
                 n_real=n_real, perm=shuffler.rows(epoch, data.size))
             state, loss = dp_fn(state, data, ei)
             return state, float(loss)
@@ -608,31 +406,10 @@ def fit(
         def run_epoch(state, epoch):
             return train_epoch(state, data, None, config, epoch_fn,
                                perm=shuffler.rows(epoch, data.size))
-    writer = rank == 0
-    val_fn = make_val_fn(val_data, config.options) if writer else None
-    _save = make_ckpt_saver(output_dir, mu, save_full_state)
-    if not writer:
-        output_dir = logger = metrics_cb = None
-    history: list = []
-    for epoch in range(start_epoch, config.n_epochs):
+    for epoch in range(run.start, config.n_epochs):
         t0 = time.perf_counter()
-        where = f"fit epoch {epoch}"
-        with _nan_watch(where, state):
+        with _nan_watch(run.where(epoch), state):
             state, loss = run_epoch(state, epoch)
-        _check_epoch(where, loss, state)
-        dt = time.perf_counter() - t0
-        history.append(loss)
-        val_loss = None if val_fn is None else val_fn(state.params)
-        _report(logger, metrics_cb, epoch, config.n_epochs, loss, dt,
-                val_loss)
-        ckpt = epoch + 1
-        if config.stop_on_negative_loss and loss < 0.0:
-            state.params = smooth_params(state.params)
-            if output_dir:
-                _save(state, ckpt)
+        if run.end_epoch(epoch, loss, time.perf_counter() - t0, state):
             break
-        if ckpt % config.smooth_interval == 0:
-            state.params = smooth_params(state.params)
-        if output_dir and ckpt % config.save_interval == 0:
-            _save(state, ckpt)
-    return state.params, history
+    return state.params, run.history

@@ -44,7 +44,7 @@ from qfa_tpu_torch import compat
 from qfa_tpu_torch.config import load_config
 from qfa_tpu_torch.models.params import PARAM_NAMES
 from qfa_tpu_torch.physics.tau import tau as port_tau
-from qfa_tpu_torch.train import fused_engine
+from qfa_tpu_torch.train import loop
 
 GRID = dict(lam_min=1030.0, lam_max=1120.0, dloglam=5e-4)
 N = 32
@@ -309,7 +309,7 @@ def test_train_xla_matches_jax_facade(survey, tmp_path, monkeypatch):
     its step schedule, fed the JAX facade's epoch permutations through
     the trainer's shuffler: the same per-epoch losses, parameters and
     checkpoints."""
-    monkeypatch.setattr(fused_engine, "SeededShuffler", JaxRows)
+    monkeypatch.setattr(loop, "SeededShuffler", JaxRows)
     dl, jdl = loaders(survey[0])
     model, jmodel = models(survey, seed=4)
     hist = {}

@@ -24,6 +24,7 @@ from qfa_tpu_torch.ops.epoch_kernel import fused_train_epoch_plain
 from qfa_tpu_torch.parallel import make_mesh
 from qfa_tpu_torch.train import (
     SeededShuffler,
+    _run,
     TrainConfig,
     TrainState,
     adam,
@@ -269,7 +270,7 @@ def test_a_held_out_set_is_taken_on_each_chunks_own_state(tmp_path,
         fn = make_val_fn(*args)
         return lambda p: got_val.append(fn(p)) or got_val[-1]
 
-    monkeypatch.setattr(fused_engine, "make_val_fn", make_recording_val_fn)
+    monkeypatch.setattr(_run, "make_val_fn", make_recording_val_fn)
     cfg = config(12)
     got, (ahead, dropped) = run(tmp_path, cfg, val_data=data())
     want_val: list = []
